@@ -1,0 +1,69 @@
+"""Build a CUDA source of ``csrc/`` into a shared library and load it with ctypes.
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` at first use, into
+``celldetection_tpu_torch/_build/`` (listed in ``.gitignore``); the library
+name carries a hash of the source and flags, so an edited source rebuilds.
+The sources expose a plain C interface: no PyTorch headers, so a build takes
+seconds.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+
+__all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'KernelLibrary', 'build_library']
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(_PKG, '_build')
+# -fmad=false: no mul+add contraction, so the kernels round like the plain
+# PyTorch versions they are held against bit for bit.
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-fmad=false', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+
+@dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: str
+    build_seconds: float   # 0.0 when an earlier build was reused
+    log: str               # nvcc's output, -Xptxas -v included
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    candidate = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'nvcc')
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError('nvcc not found: the CUDA kernels are built with the CUDA toolkit')
+
+
+def build_library(source: str) -> KernelLibrary:
+    """Compile ``csrc/<source>`` (if not built yet) and load it."""
+    src = os.path.join(CSRC, source)
+    with open(src, 'rb') as f:
+        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(BUILD_DIR, f'lib{stem}_{digest}.so')
+    log_path = out + '.log'
+    seconds = 0.0
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f'{out}.{os.getpid()}.tmp'
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}')
+        with open(log_path, 'w') as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)   # atomic: a concurrent build never loads a partial file
+    with open(log_path) as f:
+        log = f.read()
+    return KernelLibrary(ctypes.CDLL(out), out, seconds, log)

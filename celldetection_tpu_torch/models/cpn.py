@@ -1,0 +1,398 @@
+"""Contour Proposal Network, single-tile inference (PyTorch).
+
+Counterpart of ``celldetection_tpu/models/cpn.py``: ``CPNCore`` (69-187),
+``_gather_hw`` (194-211), ``local_refinement`` (214-253), ``cpn_decode``
+(256-356, inference branch), ``CPN`` (508-579) with ``forward_padded``
+(614-693, no targets, no loss), ``prepare_inputs`` (708-739), ``__call__``
+(741-783, here ``forward``) and ``detach`` (785-806), ``CpnU22`` (834-846),
+``CpnU12`` (880-884) and ``get_cpn``.
+
+As in the JAX package every selection is capacity-padded: per image the top
+``max_detections`` foreground pixels are carried through decode, refinement
+and NMS as fixed ``[B, K, ...]`` tensors with a ``valid`` mask; ragged
+per-image results appear only in :meth:`CPN.detach`. The top-K is a stable
+descending sort, so ties keep the lower pixel index first, as ``lax.top_k``.
+"""
+import warnings
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.commons import interpolate_nchw, process_scores
+from ..ops.cpn import (batched_box_nms, fouriers2contours, rel_location2abs_location,
+                       scale_contours, scale_fourier)
+from ..util.device import resolve_device
+from . import unet as unet_lib
+from .commons import FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
+
+__all__ = ['CPNCore', 'CPN', 'cpn_decode', 'local_refinement', 'get_cpn', 'models_by_name',
+           'CpnU22', 'CpnU12']
+
+
+class CPNCore(nn.Module):
+    """Backbone + dense CPN heads (score, location, Fourier, refinement).
+
+    Takes NHWC input and returns NHWC dense maps: ``scores [B,h,w,C]``,
+    ``locations [B,h,w,2]``, ``fourier [B,h,w,order*4]``, ``refinement
+    [B,H,W,2*buckets]`` (input resolution) or None, ``uncertainty`` None.
+    Convolutions run NCHW; with NHWC input they keep channels-last strides.
+    Head features are single decoder levels (``'0'``, ``'1'``, ...); fused
+    multi-level features and the uncertainty head belong to later slices.
+    """
+
+    def __init__(self, backbone: nn.Module, backbone_channels, order: int, score_channels: int,
+                 refinement: bool = True, refinement_margin: float = 3.,
+                 uncertainty_head: bool = False, contour_features='1', location_features='1',
+                 score_features='1', refinement_features='0',
+                 contour_head_channels: Optional[int] = None, contour_head_stride: int = 1,
+                 refinement_head_channels: Optional[int] = None, refinement_head_stride: int = 1,
+                 refinement_interpolation: str = 'bilinear', refinement_buckets: int = 1,
+                 refinement_full_res: bool = True, kernel_size_score: int = 7,
+                 kernel_size_location: int = 7, kernel_size_fourier: int = 7,
+                 kernel_size_refinement: int = 7, head_activation='relu'):
+        super().__init__()
+        if uncertainty_head:
+            raise NotImplementedError('the uncertainty head is not ported yet')
+        keys = (score_features, location_features, contour_features, refinement_features)
+        if not all(isinstance(k, str) and k.isdigit() for k in keys):
+            raise NotImplementedError(f'head features {keys}: only single decoder levels '
+                                      f'are ported')
+        self.backbone = backbone
+        self.specs = (('score', score_features, score_channels, kernel_size_score),
+                      ('location', location_features, 2, kernel_size_location),
+                      ('fourier', contour_features, order * 4, kernel_size_fourier))
+        for name, key, out_c, ksize in self.specs:
+            setattr(self, f'{name}_head', FusableReadOut(
+                backbone_channels[int(key)], out_c, kernel_size=ksize,
+                channels_mid=contour_head_channels, stride=contour_head_stride,
+                activation=head_activation))
+        # The contour heads fuse into one conv when they read the same map
+        # with the same geometry (always, at the defaults).
+        self.fusable = len({s[1] for s in self.specs}) == 1 and len({s[3] for s in self.specs}) == 1
+        self.refinement_features = refinement_features
+        self.refinement_interpolation = refinement_interpolation
+        self.refinement_full_res = refinement_full_res
+        self.refinement_head = ReadOut(
+            backbone_channels[int(refinement_features)], 2 * refinement_buckets,
+            kernel_size=kernel_size_refinement, channels_mid=refinement_head_channels,
+            stride=refinement_head_stride, activation=head_activation,
+            final_activation=ScaledTanh(refinement_margin)) if refinement else None
+
+    def forward(self, inputs: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
+        x = inputs.permute(0, 3, 1, 2)
+        features = self.backbone(x)
+        heads = [getattr(self, f'{name}_head') for name, *_ in self.specs]
+        if self.fusable:
+            x0 = features[self.specs[0][1]]
+            mid = fused_head_conv(x0, [h.conv0 for h in heads], heads[0].stride,
+                                  heads[0].padding)
+            outs, off = [], 0
+            for h in heads:
+                c = h.conv0.out_channels
+                outs.append(h.tail(mid[:, off:off + c]))
+                off += c
+        else:
+            outs = [h(features[key]) for h, (_, key, *_) in zip(heads, self.specs)]
+        scores, locations, fourier = (o.permute(0, 2, 3, 1) for o in outs)
+        refinement = None
+        if self.refinement_head is not None:
+            ref = features[self.refinement_features]
+            if self.refinement_full_res:
+                ref = interpolate_nchw(ref, x.shape[2:], self.refinement_interpolation)
+            ref = self.refinement_head(ref)
+            refinement = interpolate_nchw(ref, x.shape[2:],
+                                          self.refinement_interpolation).permute(0, 2, 3, 1)
+        return dict(scores=scores, locations=locations, refinement=refinement, fourier=fourier,
+                    uncertainty=None)
+
+
+def _gather_hw(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``[B, K, ...]`` of spatial maps ``[B, h, w, ...]`` by flat hw index ``[B, K]``."""
+    b, h, w = x.shape[:3]
+    rest = x.shape[3:]
+    flat = x.reshape(b * h * w, -1)
+    gi = idx + (torch.arange(b, device=idx.device) * (h * w))[:, None]
+    return flat.index_select(0, gi.reshape(-1)).reshape(b, idx.shape[1], *rest)
+
+
+def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops: int,
+                     num_buckets: int, original_size):
+    """Iterative offset-field refinement of ``[B, K, S, 2]`` (x, y) contours.
+
+    Each loop rounds half to even, clamps to the image, truncates to integer
+    pixels and adds the field's offset there; the field may be bf16, the
+    positions stay fp32. Returns ``(refined, all_iterations)``.
+    """
+    if num_buckets != 1:
+        raise NotImplementedError('refinement buckets > 1 are not ported yet')
+    h, w = original_size
+    all_out = []
+    det = contours
+    for _ in range(num_loops):
+        det = torch.round(det)
+        det = torch.stack([det[..., 0].clamp(0, w - 1), det[..., 1].clamp(0, h - 1)], -1)
+        flat = det[..., 1].long() * w + det[..., 0].long()        # [B, K, S]
+        b, k, s = flat.shape
+        resp = _gather_hw(refinement, flat.reshape(b, k * s)).reshape(b, k, s, -1)
+        det = det + resp[..., :2].to(det.dtype)
+        all_out.append(det)
+    return det, all_out
+
+
+def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, order: int,
+               samples: int, score_channels: int, score_thresh, max_detections: int,
+               refinement_iterations: int, refinement_buckets: int,
+               scores_lower_bound=None, scores_upper_bound=None) -> Dict[str, torch.Tensor]:
+    """Dense head outputs → capacity-padded detections (no NMS), inference branch.
+
+    Returns ``contours [B,K,S,2], boxes [B,K,4], scores [B,K], classes [B,K],
+    locations [B,K,2], fourier [B,K,order,4], contour_proposals,
+    all_refined (tuple), box_uncertainties (None), valid [B,K], fg_index
+    [B,K], fg_count [B], dense_scores``.
+    """
+    raw_scores = dense['scores']
+    b_dim, h, w = raw_scores.shape[:3]
+    scores, classes = process_scores(raw_scores, score_channels, score_thresh,
+                                     scores_lower_bound, scores_upper_bound)
+    fourier = dense['fourier'].reshape(b_dim, h, w, -1, 4)[..., :order, :]
+    fg_mask = classes > 0
+    if score_channels in (1, 2):
+        sel_score = scores[..., 0]
+    else:
+        sel_score = torch.gather(scores, -1, classes[..., None].long())[..., 0]
+    flat_priority = torch.where(fg_mask, sel_score, -torch.inf).reshape(b_dim, h * w)
+    # top-K as a stable descending sort: ties (saturated sigmoids) keep the
+    # lower index first, as lax.top_k; with fewer than K pixels, pad invalid
+    k = min(max_detections, h * w)
+    top_vals, top_idx = torch.sort(flat_priority, dim=1, descending=True, stable=True)
+    top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
+    if k < max_detections:
+        pad = max_detections - k
+        top_vals = torch.cat([top_vals, top_vals.new_full((b_dim, pad), -torch.inf)], -1)
+        top_idx = torch.cat([top_idx, top_idx.new_zeros((b_dim, pad))], -1)
+    valid = torch.isfinite(top_vals)
+    fg_count = fg_mask.reshape(b_dim, -1).sum(-1)
+
+    locations_abs = rel_location2abs_location(dense['locations'], channels_last=True)
+    sel_fourier = _gather_hw(fourier, top_idx)                   # [B, K, order, 4]
+    sel_locations = _gather_hw(locations_abs, top_idx)           # [B, K, 2]
+    sel_classes = _gather_hw(classes[..., None], top_idx)[..., 0]
+    sel_scores = _gather_hw(sel_score[..., None], top_idx)[..., 0]
+    proposals, _ = fouriers2contours(sel_fourier, sel_locations, samples=samples)
+
+    actual_size = (h, w)
+    proposals = scale_contours(actual_size, input_size, proposals)
+    sel_fourier, sel_locations = scale_fourier(actual_size, input_size, sel_fourier,
+                                               sel_locations)
+    refinement = dense['refinement']
+    if refinement is not None and refinement_iterations > 0:
+        contours, all_refined = local_refinement(proposals, refinement, refinement_iterations,
+                                                 refinement_buckets, input_size)
+    else:
+        contours, all_refined = proposals, [proposals]
+    all_refined = [torch.stack([c[..., 0].clamp(0, input_size[1] - 1),
+                                c[..., 1].clamp(0, input_size[0] - 1)], -1) for c in all_refined]
+    contours = all_refined[-1]
+    boxes = torch.cat((contours.amin(-2), contours.amax(-2)), -1)
+    return dict(contours=contours, boxes=boxes, scores=sel_scores, classes=sel_classes,
+                locations=sel_locations, fourier=sel_fourier, contour_proposals=proposals,
+                all_refined=tuple(all_refined), box_uncertainties=None, valid=valid,
+                fg_index=top_idx, fg_count=fg_count, dense_scores=raw_scores)
+
+
+class CPN(nn.Module):
+    """Contour Proposal Network (user-facing, inference).
+
+    Calling the model on a (batch of) image(s) returns per-image lists of
+    ``contours, boxes, scores, classes, locations, fourier,
+    contour_proposals, box_uncertainties`` plus ``fg_overflow``.
+
+    Args:
+        backbone: A backbone module exposing ``feature_channels``.
+        max_detections: Detection capacity K per image.
+        compute_dtype: e.g. ``torch.bfloat16``: the parameters (fp32) and the
+            input are cast for the backbone and heads, and decoding runs in
+            fp32, except the refinement field, which stays in that dtype.
+        max_imsize: Larger inputs belong to tiled inference, which is not
+            ported yet; they raise.
+        device: Where the model lives; ``cuda`` by default (raises without a
+            card), ``'cpu'`` on request.
+    """
+
+    def __init__(self, backbone: nn.Module, order: int = 5, nms_thresh: float = .2,
+                 score_thresh: float = .9, samples: int = 32, classes: int = 2,
+                 refinement: bool = True, refinement_iterations: int = 4,
+                 refinement_margin: float = 3., refinement_buckets: int = 1,
+                 contour_features='1', location_features='1', score_features='1',
+                 refinement_features='0', contour_head_channels: int = None,
+                 contour_head_stride: int = 1, refinement_head_channels: int = None,
+                 refinement_head_stride: int = 1, refinement_interpolation: str = 'bilinear',
+                 max_detections: int = 2048, compute_dtype: Optional[torch.dtype] = None,
+                 max_imsize: Optional[int] = 2048, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.order = order
+        self.nms_thresh = nms_thresh
+        self.score_thresh = score_thresh
+        self.samples = samples
+        self.score_channels = 1 if classes in (1, 2) else classes
+        self.refinement = refinement
+        self.refinement_iterations = refinement_iterations
+        self.refinement_buckets = refinement_buckets
+        self.max_detections = max_detections
+        self.compute_dtype = compute_dtype
+        self.max_imsize = max_imsize
+        self.core = CPNCore(
+            backbone, tuple(backbone.feature_channels), order, self.score_channels,
+            refinement=refinement, refinement_margin=refinement_margin,
+            contour_features=contour_features, location_features=location_features,
+            score_features=score_features, refinement_features=refinement_features,
+            contour_head_channels=contour_head_channels, contour_head_stride=contour_head_stride,
+            refinement_head_channels=refinement_head_channels,
+            refinement_head_stride=refinement_head_stride,
+            refinement_interpolation=refinement_interpolation,
+            refinement_buckets=refinement_buckets)
+        self.hparams = dict(order=order, nms_thresh=nms_thresh, score_thresh=score_thresh,
+                            samples=samples, classes=classes, refinement=refinement,
+                            refinement_iterations=refinement_iterations,
+                            refinement_buckets=refinement_buckets,
+                            max_detections=max_detections)
+        self.to(device)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @torch.no_grad()
+    def forward_padded(self, inputs: torch.Tensor, *, score_thresh=None, nms: bool = True,
+                       scores_lower_bound=None, scores_upper_bound=None) -> dict:
+        """Fixed-shape forward of NHWC float input: dense heads → padded detections."""
+        score_thresh = self.score_thresh if score_thresh is None else score_thresh
+        cdt = self.compute_dtype
+        if cdt is None:
+            dense = self.core(inputs)
+        else:
+            # a cast copy per call: one pass over the weights, far below a
+            # forward's cost, and nothing to keep in step with the fp32 weights
+            state = {k: t.to(cdt) if t.is_floating_point() else t
+                     for k, t in self.core.state_dict().items()}
+            dense = torch.func.functional_call(self.core, state, (inputs.to(cdt),))
+            dense = {k: (v if v is None or k == 'refinement' else v.float())
+                     for k, v in dense.items()}
+        decoded = cpn_decode(
+            dense, tuple(inputs.shape[1:3]), order=self.order, samples=self.samples,
+            score_channels=self.score_channels, score_thresh=score_thresh,
+            max_detections=self.max_detections,
+            refinement_iterations=self.refinement_iterations if self.refinement else 0,
+            refinement_buckets=self.refinement_buckets,
+            scores_lower_bound=scores_lower_bound, scores_upper_bound=scores_upper_bound)
+        if nms:
+            keep = batched_box_nms(decoded['boxes'], decoded['scores'], decoded['valid'],
+                                   self.nms_thresh)
+            decoded['valid'] = decoded['valid'] & keep
+        return decoded
+
+    def prepare_inputs(self, inputs) -> torch.Tensor:
+        """numpy or tensor HWC, NHWC or NCHW images (uint8 → /255) → float32 NHWC on the model's device."""
+        is_tensor = isinstance(inputs, torch.Tensor)
+        x = inputs if is_tensor else np.asarray(inputs)
+        if x.ndim == 2:
+            x = x[..., None]
+        if x.ndim == 3:
+            x = x[None]
+        in_c = self.hparams.get('in_channels')
+        if in_c is not None and x.shape[1] != x.shape[-1]:
+            nchw = x.shape[1] == in_c and x.shape[-1] != in_c
+        else:
+            nchw = x.shape[1] <= 8 < x.shape[-1]
+        if nchw:
+            x = x.permute(0, 2, 3, 1) if is_tensor else np.moveaxis(x, 1, -1)
+        if not is_tensor:
+            if np.issubdtype(x.dtype, np.floating) and x.size and float(x.max()) > 2.:
+                warnings.warn(f'prepare_inputs: float input with max {float(x.max()):.3g} '
+                              f'exceeds the expected [0, 1] range; values are clamped by '
+                              f'Normalize. Scale inputs to [0, 1] (or pass uint8).')
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def forward(self, inputs, nms: bool = True, score_thresh=None, scores_lower_bound=None,
+                scores_upper_bound=None) -> dict:
+        """Per-image ragged results for a (batch of) image(s)."""
+        x = self.prepare_inputs(inputs)
+        if self.max_imsize is not None and max(x.shape[1:3]) > self.max_imsize:
+            raise NotImplementedError(
+                f'input {tuple(x.shape[1:3])} exceeds max_imsize={self.max_imsize}: tiled '
+                f'inference is not ported yet (it comes with the tiling slice)')
+        out = self.forward_padded(x, score_thresh=score_thresh, nms=nms,
+                                  scores_lower_bound=scores_lower_bound,
+                                  scores_upper_bound=scores_upper_bound)
+        return self.detach(out)
+
+    @staticmethod
+    def detach(out: Dict[str, torch.Tensor]) -> Dict[str, list]:
+        """Padded tensors → per-image ragged numpy lists (host boundary)."""
+        valid = out['valid'].cpu().numpy()
+        result = {}
+        for k in ('contours', 'boxes', 'scores', 'classes', 'locations', 'fourier',
+                  'contour_proposals', 'box_uncertainties'):
+            v = out.get(k)
+            if v is None:
+                result[k] = None
+                continue
+            v = v.cpu().numpy()
+            result[k] = [v[i][valid[i]] for i in range(v.shape[0])]
+        capacity = valid.shape[1]
+        result['fg_overflow'] = [bool(c > capacity) for c in out['fg_count'].cpu().numpy()]
+        return result
+
+
+models_by_name = {}
+
+
+def register_model(fn):
+    models_by_name[fn.__name__] = fn
+    return fn
+
+
+def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None, **kwargs):
+    device = resolve_device(device)   # fail before building on a card-less host
+    backbone = backbone_fn(in_channels, 0, backbone_kwargs=dict(backbone_kwargs or {}))
+    model = CPN(backbone=backbone, device=device, **kwargs)
+    model.hparams.update(in_channels=in_channels, backbone_kwargs=backbone_kwargs)
+    return model
+
+
+@register_model
+def CpnU22(in_channels: int, order: int = 5, nms_thresh: float = .2, score_thresh: float = .9,
+           samples: int = 32, classes: int = 2, refinement: bool = True,
+           refinement_iterations: int = 4, refinement_margin: float = 3.,
+           refinement_buckets: int = 1, backbone_kwargs: dict = None, **kwargs):
+    """CPN with a U22 backbone."""
+    m = _make_cpn(unet_lib.U22, in_channels, backbone_kwargs, order=order, nms_thresh=nms_thresh,
+                  score_thresh=score_thresh, samples=samples, classes=classes,
+                  refinement=refinement, refinement_iterations=refinement_iterations,
+                  refinement_margin=refinement_margin, refinement_buckets=refinement_buckets,
+                  **kwargs)
+    m.hparams['model'] = 'CpnU22'
+    return m
+
+
+@register_model
+def CpnU12(in_channels: int, backbone_kwargs: dict = None, **kwargs):
+    """CPN with a U12 backbone (U22's modules at depth 3)."""
+    m = _make_cpn(unet_lib.U12, in_channels, backbone_kwargs, **kwargs)
+    m.hparams['model'] = 'CpnU12'
+    return m
+
+
+def get_cpn(name: str):
+    """Look up a CPN model constructor by name."""
+    if name not in models_by_name:
+        raise KeyError(f'Unknown or not yet ported CPN model: {name}. '
+                       f'Available: {sorted(models_by_name)}')
+    return models_by_name[name]

@@ -1,0 +1,109 @@
+"""CPN decode math (plain PyTorch, fixed shapes).
+
+Counterpart of ``celldetection_tpu/ops/cpn.py``: ``rel_location2abs_location``
+(35-60), ``fourier_basis`` and ``fouriers2contours`` (63-109), ``get_scale``,
+``scale_contours`` and ``scale_fourier`` (112-136), ``batched_box_nms``
+(229-237).
+"""
+import math
+from typing import Optional
+
+import torch
+
+from .boxes import nms_padded
+
+__all__ = ['rel_location2abs_location', 'fourier_basis', 'fouriers2contours', 'get_scale',
+           'scale_contours', 'scale_fourier', 'batched_box_nms']
+
+
+def rel_location2abs_location(locations: torch.Tensor, channels_last: bool = None) -> torch.Tensor:
+    """Add the pixel-grid offset to relative xy locations.
+
+    Args:
+        locations: ``[..., 2, h, w]`` (channel-first) or ``[..., h, w, 2]``.
+        channels_last: Layout; when None, channels-last iff the last axis has
+            extent 2 (pass it explicitly for 2-row channel-first maps).
+    """
+    if channels_last is None:
+        channels_last = locations.shape[-1] == 2
+    h, w = (locations.shape[-3], locations.shape[-2]) if channels_last else locations.shape[-2:]
+    kw = dict(dtype=locations.dtype, device=locations.device)
+    gy, gx = torch.meshgrid(torch.arange(h, **kw), torch.arange(w, **kw), indexing='ij')
+    return locations + torch.stack((gx, gy), -1 if channels_last else 0)
+
+
+def fourier_basis(order: int, samples: int = None, sampling: torch.Tensor = None,
+                  dtype=torch.float32, device=None):
+    """Cos/sin basis ``(..., order, samples)`` of the inverse elliptic-Fourier transform.
+
+    Returns ``(c_cos, c_sin, sampling)``. The default sampling is
+    ``i * (1 / (samples - 1))`` in ``dtype``: bit for bit what
+    ``jnp.linspace(0, 1, samples)`` gives, since XLA turns its divide into
+    that multiply (``i / (samples - 1)`` differs in the last bit).
+    """
+    if sampling is None:
+        if samples == 1:
+            sampling = torch.zeros(1, dtype=dtype, device=device)
+        else:
+            step = torch.tensor(1. / (samples - 1), dtype=dtype, device=device)
+            sampling = torch.arange(samples, dtype=dtype, device=device) * step
+    k = torch.arange(1, order + 1, dtype=sampling.dtype, device=sampling.device)
+    c = (2.0 * math.pi) * k[:, None] * sampling[..., None, :]
+    return torch.cos(c), torch.sin(c), sampling
+
+
+def fouriers2contours(fourier: torch.Tensor, locations: torch.Tensor, samples: int = 64,
+                      sampling: Optional[torch.Tensor] = None):
+    """Inverse-DFT sampling: Fourier descriptors → contour coordinates.
+
+    ``con[..., s, :] = loc + sum_k [a,c]_k cos(2 pi k t_s) + [b,d]_k sin(2 pi k t_s)``
+
+    The order contraction is a broadcast multiply and sum in the input dtype,
+    not a matrix product, so no TF32 path can touch it.
+
+    Args:
+        fourier: ``[..., order, 4]`` coefficients (a, b, c, d).
+        locations: ``[..., 2]`` contour centroids (x, y).
+        samples: Number of contour samples (ignored if ``sampling`` given).
+        sampling: Optional ``[..., samples]`` positions in [0, 1].
+
+    Returns:
+        ``(contours [..., samples, 2], sampling)``.
+    """
+    order = fourier.shape[-2]
+    c_cos, c_sin, sampling = fourier_basis(order, samples, sampling, dtype=fourier.dtype,
+                                           device=fourier.device)
+    cos_coef = fourier[..., None, [0, 2]]   # [..., order, 1, 2]
+    sin_coef = fourier[..., None, [1, 3]]
+    con = (cos_coef * c_cos[..., None]).sum(-3)          # [..., samples, 2]
+    con = con + (sin_coef * c_sin[..., None]).sum(-3)
+    return con + locations[..., None, :], sampling
+
+
+def get_scale(actual_size, original_size, flip: bool = True, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    scale = (torch.as_tensor(original_size, dtype=dtype, device=device)
+             / torch.as_tensor(actual_size, dtype=dtype, device=device))
+    return torch.flip(scale, (-1,)) if flip else scale
+
+
+def scale_contours(actual_size, original_size, contours: torch.Tensor) -> torch.Tensor:
+    """Scale (x, y) contours from ``actual_size`` (h, w) to ``original_size`` (h, w)."""
+    return contours * get_scale(actual_size, original_size, dtype=contours.dtype,
+                                device=contours.device)
+
+
+def scale_fourier(actual_size, original_size, fourier: torch.Tensor, location: torch.Tensor):
+    """Scale Fourier descriptors (x slots 0, 1; y slots 2, 3) and locations."""
+    scale = get_scale(actual_size, original_size, dtype=fourier.dtype, device=fourier.device)
+    coef_scale = torch.repeat_interleave(scale, 2, -1)   # (sx, sx, sy, sy)
+    return fourier * coef_scale, location * scale
+
+
+def batched_box_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """Exact greedy NMS per image over ``[B, N, ...]`` capacity-padded boxes.
+
+    The batch dimension is written out: on CUDA all images share one launch.
+    """
+    return nms_padded(boxes, scores, valid, iou_threshold)

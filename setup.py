@@ -9,14 +9,18 @@ setup(
     version=meta['__version__'],
     description=meta['__summary__'],
     license=meta['__license__'],
-    packages=find_packages(include=('celldetection_tpu', 'celldetection_tpu.*')),
+    packages=find_packages(include=('celldetection_tpu', 'celldetection_tpu.*',
+                                    'celldetection_tpu_torch', 'celldetection_tpu_torch.*')),
+    # the port's CUDA sources, compiled by nvcc at first use
+    package_data={'celldetection_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'opencv-python',
         'scipy', 'h5py', 'pyyaml', 'pandas', 'imageio', 'msgpack',
     ],
     extras_require={
-        # torch checkpoint import/export + host-executed encoders
+        # torch checkpoint import/export + host-executed encoders, and the
+        # PyTorch/CUDA port (celldetection_tpu_torch)
         'torch': ['torch'],
         'viz': ['matplotlib'],
     },
