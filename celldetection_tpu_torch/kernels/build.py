@@ -2,7 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` at first use, into
 ``celldetection_tpu_torch/_build/`` (listed in ``.gitignore``); the library
-name carries a hash of the source and flags, so an edited source rebuilds.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds; a build with extra
+``-D`` macros (an instrumented variant) is a library of its own.
 The sources expose a plain C interface: no PyTorch headers, so a build takes
 seconds.
 """
@@ -43,11 +45,20 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found: the CUDA kernels are built with the CUDA toolkit')
 
 
-def build_library(source: str) -> KernelLibrary:
-    """Compile ``csrc/<source>`` (if not built yet) and load it."""
+def build_library(source: str, defines: tuple = ()) -> KernelLibrary:
+    """Compile ``csrc/<source>`` (if not built yet) and load it.
+
+    Args:
+        defines: macros to define (``-D``) for this build.
+    """
     src = os.path.join(CSRC, source)
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = NVCC_FLAGS + tuple(f'-D{d}' for d in defines)
+    digest = hashlib.sha1(' '.join(flags).encode())
+    # the source and every header of csrc/ it may include
+    for path in [src] + sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith('.cuh')):
+        with open(path, 'rb') as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     out = os.path.join(BUILD_DIR, f'lib{stem}_{digest}.so')
     log_path = out + '.log'
@@ -56,7 +67,7 @@ def build_library(source: str) -> KernelLibrary:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{out}.{os.getpid()}.tmp'
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+        proc = subprocess.run([_nvcc(), *flags, '-o', tmp, src],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

@@ -1,41 +1,289 @@
-"""Exact greedy NMS sweep: the hand-written Hopper kernel ``csrc/nms_sweep.cu``.
+"""Exact greedy NMS in hand-written Hopper kernels: ``csrc/nms_bits.cu``, ``csrc/nms_resolve.cu``.
 
-Replaces ``celldetection_tpu/kernels/nms_pallas.py:_nms_kernel`` (the only
-Pallas kernel of the JAX package; ``pallas_call`` at line 149). As in the
-JAX package, the wrapper around the kernel (``ops/boxes.py:nms_padded``)
+Together they replace ``celldetection_tpu/kernels/nms_pallas.py:_nms_kernel``
+(the only Pallas kernel of the JAX package; ``pallas_call`` at line 149). As
+in the JAX package, the wrapper around the sweep (``ops/boxes.py:nms_padded``)
 sorts by score, gathers the boxes and scatters the keep mask back to the
-original order; the kernel does the sweep over the sorted boxes, one CTA per
-image, every image of the batch in one launch. The source explains what
-bounds it on this card and what its design does about it.
+original order. :func:`nms_sweep` does the sweep over the sorted boxes in
+three kernels, each with its own launch wrapper and counter:
 
-The plain version is ``ops/boxes.py:_nms_sweep``: :func:`nms_sweep` runs it
-for a CPU tensor and launches the kernel for a CUDA tensor; there is no
-fallback from one to the other.
+1. :func:`nms_bits_count`: each box's column word in its own block (the
+   earlier boxes of its block that suppress it) and, for the packed layout,
+   every pair test of every image across the whole card: how many of each
+   row's later words are not 0, which pairs of blocks hold such a word, and
+   each row's word of the next block;
+2. :func:`nms_bits_fill`: the later words that are not 0, as (bits, row,
+   word) pairs;
+3. :func:`nms_resolve`: the greedy over the blocks in order, one CTA per
+   image, with the image's removed bits in shared memory.
+
+:func:`slots_layout` picks the layout and :func:`band_plan` the bands. An
+image of at most ``SLOT_BLOCKS`` blocks (2048 boxes, the per-image main
+path) takes the slots layout: every later word has a fixed slot, the count
+does only the diagonal blocks and the fill every later test, so each test
+runs once and neither a prefix sum nor the host is needed between the
+kernels; at 2048 boxes, where the call is bound by the host, that makes it
+faster than the packed layout (PERF.md). Larger images take the packed
+layout: a ``torch.cumsum`` of the counts gives each row's offset and the
+fill tests again only the flagged block pairs; where every later word of
+every row would fit in ``PAIR_BUDGET`` (up to ~23,000 boxes in one image)
+there is one band and that bound sizes the scratch, otherwise one read of
+the counts on the host cuts the row blocks into bands of at most
+``PAIR_BUDGET`` pairs, and the removed bits carry from one band to the next.
+The sources explain what bounds each kernel on this card and what its design
+does about it.
+
+Each wrapper runs its plain version in ``ops/boxes.py`` for a CPU tensor and
+launches its kernel for a CUDA tensor; there is no fallback from one to the
+other. :func:`nms_sweep` checks the inputs (device, types, shapes,
+contiguity, sizes) once for all three; the kernel wrappers take what it has
+checked. ``ops/boxes.py:_nms_sweep`` is the plain version of the whole sweep,
+and what :func:`nms_sweep` runs for a CPU tensor.
 """
 import ctypes
 import functools
 
 import torch
 
-from ..ops.boxes import _nms_sweep
+from ..ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks, _suppression_counts,
+                         _suppression_pairs)
 from .build import KernelLibrary, build_library
 
-__all__ = ['nms_sweep', 'nms_library']
+__all__ = ['nms_sweep', 'bits_sweep', 'nms_bits_count', 'nms_bits_fill', 'nms_resolve',
+           'bits_library', 'resolve_library', 'slots_layout', 'band_plan', 'pair_bands',
+           'PAIR_BUDGET', 'MAX_BOXES', 'SLOT_BLOCKS']
 
-SOURCE = 'nms_sweep.cu'
+# Pairs of one band at most (16 bytes each: 128 MiB), unless one row block
+# alone has more (B * 64 * (M / 64 - 1) pairs at most: 56 images of 16,384
+# boxes give 0.9 M). With diag, the next words, the offsets and their copy
+# (8 bytes per box each) and the flags (B * (M / 64)^2 bytes) this bounds the
+# sweep's scratch.
+PAIR_BUDGET = 8 * 2 ** 20
+# Boxes per image at most, the JAX package's largest exact NMS
+# (ops/boxes.py:_PALLAS_NMS_MAX there): the bits' flags take B * (M / 64)^2
+# bytes, 16 MiB here, and the resolve's shared memory 200,704 bytes.
+MAX_BOXES = 4096 * BLOCK
+# Blocks per image at most for the slots layout: a block's 64 x 31 slots fit
+# one stage of the resolve's ring in shared memory (2,048 pairs,
+# csrc/nms_resolve.cu).
+SLOT_BLOCKS = 32
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
-@functools.cache
-def nms_library() -> KernelLibrary:
-    """Build (at first use) and load the kernel's library."""
-    built = build_library(SOURCE)
-    fn = built.lib.cdt_nms_sweep
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _load(source: str, functions, defines=()) -> KernelLibrary:
+    built = build_library(source, defines)
+    for name, argtypes in functions.items():
+        fn = getattr(built.lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     built.lib.cdt_cuda_error_string.argtypes = [ctypes.c_int]
     built.lib.cdt_cuda_error_string.restype = ctypes.c_char_p
     return built
+
+
+@functools.cache
+def bits_library() -> KernelLibrary:
+    """Build (at first use) and load ``csrc/nms_bits.cu``."""
+    return _load('nms_bits.cu', {
+        'cdt_nms_bits_count': [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+        'cdt_nms_bits_fill': [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I,
+                              ctypes.c_longlong, _P]})
+
+
+@functools.cache
+def resolve_library(trace: bool = False) -> KernelLibrary:
+    """Build (at first use) and load ``csrc/nms_resolve.cu``.
+
+    Args:
+        trace: the instrumented build, which also sums the clock cycles of
+            each phase of the walk (``cdt_nms_resolve_phases``; read by
+            ``scripts/torch_nms_resolve_steps.py``). The wrappers never use it.
+    """
+    functions = {
+        'cdt_nms_resolve': [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _P],
+        'cdt_empty_launch': [_P]}
+    if trace:
+        functions['cdt_nms_resolve_phases'] = [_P]
+    return _load('nms_resolve.cu', functions, ('CDT_NMS_TRACE',) if trace else ())
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch(built: KernelLibrary, name: str, device: torch.device, *args) -> None:
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(built, name, device, *args)
+    # the raw stream handle: torch.cuda.current_stream builds a Stream object,
+    # several microseconds a launch on the main path
+    err = getattr(built.lib, name)(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err:
+        raise RuntimeError(f'{name} launch failed: {built.lib.cdt_cuda_error_string(err).decode()}')
+
+
+def nms_bits_count(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                   packed: bool = True):
+    """Each box's column word in its own block and, for the packed layout,
+    each row's number of non-zero later words, which block pairs hold one,
+    and each row's word of the next block.
+
+    Args:
+        packed: ``False`` for the slots layout, which needs the column words only.
+
+    Returns:
+        ``(start [nb * B * 64 + 1] int64, diag [B, nb * 64] int64, flags
+        [B * nb * nb] uint8, nxt [B, nb * 64] int64)``; for slots all but
+        ``diag`` are ``None``. ``start[1 + q]`` is the count of block-major row
+        q, ``start[0] = 0``; see ``ops/boxes.py:_suppression_counts``.
+    """
+    if boxes.device.type == 'cpu':
+        start, diag, flags, nxt = _suppression_counts(boxes, valid, iou_threshold)
+        return (start, diag, flags, nxt) if packed else (None, diag, None, None)
+    bsz, m = valid.shape
+    nb = -(-m // BLOCK)
+    diag = torch.empty(bsz, nb * BLOCK, dtype=torch.int64, device=boxes.device)
+    start = flags = nxt = None
+    if packed:
+        start = torch.empty(nb * bsz * BLOCK + 1, dtype=torch.int64, device=boxes.device)
+        flags = torch.empty(bsz * nb * nb, dtype=torch.uint8, device=boxes.device)
+        nxt = torch.empty(bsz, nb * BLOCK, dtype=torch.int64, device=boxes.device)
+    _launch(bits_library(), 'cdt_nms_bits_count', boxes.device, boxes.data_ptr(),
+            valid.data_ptr(), _ptr(start), diag.data_ptr(), _ptr(nxt), _ptr(flags), bsz, m,
+            float(iou_threshold))
+    nms_bits_count.launches += 1
+    return start, diag, flags, nxt
+
+
+def nms_bits_fill(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                  r0: int, r1: int, flags: torch.Tensor, start: torch.Tensor, base: int,
+                  size: int) -> torch.Tensor:
+    """The non-zero later words of the rows in blocks ``[r0, r1)``.
+
+    Args:
+        flags: :func:`nms_bits_count`'s; only flagged block pairs are tested
+            (packed; the slots layout tests every later block pair).
+        start: the rows' offsets, the exclusive prefix sum of
+            :func:`nms_bits_count`'s counts; ``base = start[r0 * B * 64]``.
+            ``None``: the slots layout, for all row blocks at once.
+        size: room for the band's pairs, at least ``start[r1 * B * 64] - base``;
+            in the slots layout ``B * 64 * nb * (nb - 1) / 2``.
+
+    Returns:
+        ``[size, 2]`` int64 pairs ``(bits, row | word << 32)``; packed, row by
+        row at ``start - base`` in no fixed order inside a row, the room past
+        the band's last pair not written; in slots, each word at its slot and
+        zeros elsewhere (see ``csrc/nms_common.cuh``). The plain version
+        returns exactly the pairs, ordered by row and word.
+    """
+    if boxes.device.type == 'cpu':
+        return _suppression_pairs(boxes, valid, iou_threshold, r0, r1)
+    bsz, m = valid.shape
+    cursor = None if start is None else start.clone()
+    pairs = torch.empty(size, 2, dtype=torch.int64, device=boxes.device)
+    _launch(bits_library(), 'cdt_nms_bits_fill', boxes.device, boxes.data_ptr(),
+            valid.data_ptr(), _ptr(flags), _ptr(cursor), pairs.data_ptr(), bsz, m,
+            float(iou_threshold), r0, r1, base)
+    nms_bits_fill.launches += 1
+    return pairs
+
+
+def nms_resolve(valid: torch.Tensor, diag: torch.Tensor, nxt: torch.Tensor,
+                pairs: torch.Tensor, start: torch.Tensor, base: int, removed: torch.Tensor,
+                keep: torch.Tensor, r0: int, r1: int) -> None:
+    """The greedy over row blocks ``[r0, r1)``; updates ``keep`` and ``removed`` in place.
+
+    Args:
+        diag, nxt: :func:`nms_bits_count`'s (``nxt`` ``None`` for slots).
+        pairs, start, base: the band's pairs and the rows' offsets
+            (:func:`nms_bits_fill`; ``start`` ``None`` for the slots layout).
+        removed: ``[B, ceil(M / 64)]`` int64, the bits removed by kept boxes of
+            earlier bands; read only where ``r0 > 0``, then written. ``None``
+            where this band is the only one.
+        keep: ``[B, M]`` bool; the band's rows are written.
+    """
+    if valid.device.type == 'cpu':
+        return _resolve_blocks(valid, diag, pairs, removed, keep, r0, r1)
+    bsz, m = valid.shape
+    _launch(resolve_library(), 'cdt_nms_resolve', valid.device,
+            diag.data_ptr(), _ptr(nxt), pairs.data_ptr(), _ptr(start), base, _ptr(removed),
+            keep.data_ptr(), bsz, m, r0, r1)
+    nms_resolve.launches += 1
+
+
+for _k in (nms_bits_count, nms_bits_fill, nms_resolve):
+    _k.launches = 0  # kernel launches since the last reset (set to 0 to reset)
+
+
+def pair_bands(cum_pairs, budget: int = PAIR_BUDGET):
+    """Cut the row blocks into bands of at most ``budget`` pairs.
+
+    Args:
+        cum_pairs: inclusive running sum of each row block's pairs (all
+            images together), one entry per block.
+
+    Returns:
+        ``[(r0, r1), ...]`` covering every block in order; a block with more
+        than ``budget`` pairs is a band of its own.
+    """
+    bands, r0, base = [], 0, 0
+    for r, total in enumerate(cum_pairs):
+        if r > r0 and total - base > budget:
+            bands.append((r0, r))
+            r0, base = r, cum_pairs[r - 1]
+    return bands + [(r0, len(cum_pairs))] if len(cum_pairs) else bands
+
+
+def slots_layout(batch: int, m: int, pair_budget: int = PAIR_BUDGET) -> bool:
+    """Whether :func:`bits_sweep` takes the slots layout for ``[batch, m]``
+    boxes: at most ``SLOT_BLOCKS`` blocks per image, and every later word of
+    every row within ``pair_budget``."""
+    nb = -(-m // BLOCK)
+    return nb <= SLOT_BLOCKS and batch * BLOCK * nb * (nb - 1) // 2 <= pair_budget
+
+
+def band_plan(start, batch: int, m: int, pair_budget: int = PAIR_BUDGET):
+    """The bands of row blocks that :func:`bits_sweep` walks.
+
+    Args:
+        start: ``None`` for the slots layout; for the packed layout the rows'
+            offsets, the prefix sum of :func:`nms_bits_count`'s counts.
+
+    Returns:
+        ``[(r0, r1, base, size), ...]``: each band's row blocks, its first
+        pair's offset and the room its pairs take. One band of room for every
+        later word of every row, with no read on the host, in the slots layout
+        and where that room fits ``pair_budget``; otherwise :func:`pair_bands`
+        over the offsets read back, each band's room exact.
+    """
+    nb = -(-m // BLOCK)
+    bound = batch * BLOCK * nb * (nb - 1) // 2     # every later word of every row
+    if start is None or bound <= pair_budget:
+        return [(0, nb, 0, bound)]
+    ends = start[batch * BLOCK::batch * BLOCK].tolist()   # each row block's end offset
+    return [(r0, r1, ends[r0 - 1] if r0 else 0, ends[r1 - 1] - (ends[r0 - 1] if r0 else 0))
+            for r0, r1 in pair_bands(ends, pair_budget)]
+
+
+def bits_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+               pair_budget: int = PAIR_BUDGET) -> torch.Tensor:
+    """The sweep of :func:`nms_sweep` through the three kernel wrappers.
+
+    On CPU tensors it runs their plain versions, band by band as on the card.
+    """
+    bsz, m = valid.shape
+    slots = slots_layout(bsz, m, pair_budget)
+    start, diag, flags, nxt = nms_bits_count(boxes, valid, iou_threshold, packed=not slots)
+    if start is not None:
+        start.cumsum_(0)                           # start[0] is 0: the rows' offsets
+    bands = band_plan(start, bsz, m, pair_budget)
+    keep = torch.empty_like(valid)
+    removed = (torch.empty(bsz, -(-m // BLOCK), dtype=torch.int64, device=boxes.device)
+               if len(bands) > 1 else None)
+    for r0, r1, base, size in bands:
+        pairs = nms_bits_fill(boxes, valid, iou_threshold, r0, r1, flags, start, base, size)
+        nms_resolve(valid, diag, nxt, pairs, start, base, removed, keep, r0, r1)
+    return keep
 
 
 def nms_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
@@ -64,21 +312,9 @@ def nms_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) ->
     if not (boxes.is_contiguous() and valid.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError('nms_sweep: inputs must be contiguous, boxes 16-byte aligned')
     bsz, m = valid.shape
-    if bsz * m >= 2 ** 31:
-        raise ValueError(f'nms_sweep: {bsz} x {m} boxes exceed the kernel\'s int indexing')
-    keep = torch.empty_like(valid)
-    if keep.numel() == 0:
-        return keep
-    lib = nms_library().lib
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.cdt_nms_sweep(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                                bsz, m, float(iou_threshold), stream)
-    if err:
-        raise RuntimeError(f'nms_sweep launch failed: '
-                           f'{lib.cdt_cuda_error_string(err).decode()}')
-    nms_sweep.launches += 1
-    return keep
-
-
-nms_sweep.launches = 0  # kernel launches since the last reset (set to 0 to reset)
+    if bsz * m >= 2 ** 31 or m > MAX_BOXES or bsz > 65_535:
+        raise ValueError(f'nms_sweep: {bsz} x {m} boxes exceed the kernels\' limits '
+                         f'(B * M < 2^31, M <= {MAX_BOXES}, B <= 65,535)')
+    if valid.numel() == 0:
+        return torch.empty_like(valid)
+    return bits_sweep(boxes, valid, iou_threshold)

@@ -8,19 +8,24 @@ package beside it, it exits non-zero before it prints any result.
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, the torch and CUDA versions;
-  2. build every kernel of ``celldetection_tpu_torch/csrc`` for sm_90a and
-     print ptxas's registers, shared memory and spills;
-  3. every kernel against its plain PyTorch version on the card, requiring
-     bit-equal keep masks: batched, large, ragged, tiny, all-invalid and
-     knife-edge NMS inputs;
+  2. build every kernel of ``celldetection_tpu_torch/csrc`` for sm_90a, one
+     nvcc per source, all at once, and print ptxas's registers, shared memory
+     and spills;
+  3. every NMS kernel against its plain PyTorch version on the card, bit for
+     bit, and the whole sweep against ``_nms_sweep``: batched, large, ragged,
+     tiny, all-invalid and knife-edge inputs, and at stitch scale (56 images
+     of 16,384 boxes, one image of 262,144). At the main path's and the
+     stitch's shapes it times the sweep per call (CUDA events) and each
+     kernel on the device (profiler), beside the bound, the plain version,
+     the launches per call, the peak scratch and the launch floor;
   4. full-width CpnU22 at 256^2 on the card against the same model on the
      CPU, TF32 off;
   5. the main path, ``CPN.forward_padded`` of full-width CpnU22 (backbone,
      heads, decode, refinement, NMS kernel) on 1024^2 tiles, fp32 at batch 1
      and bf16 at batch 4: throughput, a profile of one step (top kernels and
      the slowest convolutions by input shape), peak memory, detections before
-     and after NMS, the kernel launches of that run, and the NMS kernel's
-     time on that run's boxes.
+     and after NMS, the kernel launches of that run, and the NMS kernels
+     held against their plain versions and timed on that run's boxes.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -30,14 +35,19 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import celldetection_tpu_torch as ct
 from celldetection_tpu_torch import kernels, models
-from celldetection_tpu_torch.kernels.nms import nms_library, nms_sweep
-from celldetection_tpu_torch.ops.boxes import _nms_sweep, _suppression_matrix, nms_padded, sort_by_score
+from celldetection_tpu_torch.kernels import nms_bits_count, nms_bits_fill, nms_resolve
+from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, nms_sweep,
+                                                 resolve_library, slots_layout)
+from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks,
+                                               _suppression_counts, _suppression_matrix,
+                                               _suppression_pairs, nms_padded, sort_by_score)
 from celldetection_tpu_torch.util.weights import init_jax_variables, state_dict_from_jax
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -47,9 +57,19 @@ CHECK_SIZE = 256     # side of the card-vs-CPU check
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 operations of one box-pair test (csrc/nms_sweep.cu:suppresses): 4 min/max,
+# fp32 operations of one box-pair test (csrc/nms_bits.cu:suppresses): 4 min/max,
 # 2 sub, 2 clamps, inter mul, union add and sub, thresh mul, select, compare.
 PAIR_TEST_OPS = 14
+# ... and of a pair whose boxes lie apart on an axis (csrc/nms_bits.cu:apart,
+# the bits kernels' exact early-out): 4 compares.
+APART_OPS = 4
+SCRATCH_LIMIT = 256 * 2 ** 20   # bytes the NMS sweep may allocate at any phase-3 shape
+# profiler names of the kernels' device functions
+DEVICE_NAMES = (('nms_bits_kernel<false>', 'nms_bits_count'),
+                ('nms_bits_kernel<true>', 'nms_bits_fill'),
+                ('nms_resolve_kernel', 'nms_resolve'))
+SOURCES = {'nms_bits_count': 'nms_bits.cu', 'nms_bits_fill': 'nms_bits.cu',
+           'nms_resolve': 'nms_resolve.cu'}
 
 
 def check(cond, msg):
@@ -57,8 +77,8 @@ def check(cond, msg):
         raise RuntimeError(f'chip_smoke: {msg}')
 
 
-def card_line() -> str:
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+def card_line(query='name,power.limit') -> str:
+    out = subprocess.run(['nvidia-smi', f'--query-gpu={query}', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
@@ -109,24 +129,210 @@ def nms_bound(b, v, keep, thresh):
     Bytes: each box and valid flag read once, the keep mask written once.
     Operations: the pair tests this data needs: a kept box is tested against
     every kept box before it, a suppressed one up to its first kept suppressor.
+    Only kept rows are tested, in column chunks, so the temporaries stay small.
     """
     bsz, n = v.shape
     nbytes = bsz * n * (16 + 1 + 1)
     tests = 0
     for i in range(bsz):
         k = keep[i]
+        kept = k.nonzero()[:, 0]                        # kept rows, in order
+        if not len(kept):
+            continue
         ranks = torch.cumsum(k.long(), 0)               # 1-based place among kept rows
-        for c0 in range(0, n, 2048):
-            c1 = min(n, c0 + 2048)
-            sup = _suppression_matrix(b[i], b[i, c0:c1], thresh) & k[:, None]
-            sup &= torch.arange(n, device=b.device)[:, None] < torch.arange(c0, c1, device=b.device)
-            first = sup.to(torch.uint8).argmax(0)       # first kept suppressor of each column
-            kc = k[c0:c1]
-            need = torch.where(kc, ranks[c0:c1] - 1, torch.where(sup.any(0), ranks[first], 0))
+        step = max(BLOCK, 2 ** 26 // len(kept))
+        for c0 in range(0, n, step):
+            c1 = min(n, c0 + step)
+            sup = _suppression_matrix(b[i, kept], b[i, c0:c1], thresh)
+            sup &= kept[:, None] < torch.arange(c0, c1, device=b.device)
+            first = sup.to(torch.uint8).argmax(0)       # place of the first kept suppressor
+            need = torch.where(k[c0:c1], ranks[c0:c1] - 1, torch.where(sup.any(0), first + 1, 0))
             tests += int(need[v[i, c0:c1]].sum())
     ops = tests * PAIR_TEST_OPS
+    return bound_of(nbytes, ops) + (tests,)
+
+
+def bound_of(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations'), tests
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def kernel_bounds(b, v, keep, pairs, slots):
+    """Least time (ms) of each NMS kernel's own function on these inputs, in
+    the layout ``bits_sweep`` takes, and what bounds it.
+
+    Operations: a pair test takes ``PAIR_TEST_OPS``, or ``APART_OPS`` where the
+    boxes lie apart on an axis; every valid row is tested against every later
+    valid column once in all: in the slots layout the count tests the pairs
+    inside the diagonal blocks and the fill the rest; packed, the count tests
+    all of them and the fill again those of block pairs that hold a word.
+    Bytes, each input read once and each output written once: the count reads
+    the boxes and valid flags and writes the column words and, packed, the
+    counts, next words and block flags; the fill reads the boxes and valid
+    flags (packed: and the block flags and offsets) and writes its room of
+    pairs (slots: every slot); the resolve reads the column words and the
+    kept rows' later words (packed: their pairs, the next words among them,
+    and two offsets a block; slots: every slot of a kept row, zero or not),
+    and writes the keep mask. ``pairs``: the plain version's, the non-zero
+    words. ``[M, M]`` temporaries: for the main path's 2048 boxes.
+    """
+    bsz, m = v.shape
+    nb = -(-m // BLOCK)
+    rows = nb * bsz * BLOCK
+    blk = torch.arange(m, device=v.device) // BLOCK
+    same = blk[:, None] == blk[None, :]
+    row = pairs[:, 1] & 0xffffffff
+    flags = torch.zeros(bsz, nb, nb, dtype=torch.bool, device=v.device)
+    flags[row // m, row % m // BLOCK, pairs[:, 1] >> 32] = True    # block pairs holding a word
+    ops = {'count': 0, 'fill': 0}
+    for i in range(bsz):
+        x0, y0, x1, y1 = b[i].unbind(-1)
+        apart = ((x0[None, :] >= x1[:, None]) | (x0[:, None] >= x1[None, :])
+                 | (y0[None, :] >= y1[:, None]) | (y0[:, None] >= y1[None, :]))
+        later = torch.ones(m, m, dtype=torch.bool, device=v.device).triu(1)
+        later &= v[i][:, None] & v[i][None, :]
+        diagonal, off = later & same, later & ~same
+        flagged = off & flags[i][blk[:, None], blk[None, :]]
+        tested = ((('count', diagonal), ('fill', off)) if slots else
+                  (('count', later), ('fill', flagged)))
+        for name, tests in tested:
+            n_apart = int((tests & apart).sum())
+            ops[name] += n_apart * APART_OPS + (int(tests.sum()) - n_apart) * PAIR_TEST_OPS
+    kept_pairs = int(keep.flatten()[row].sum())
+    kept_slots = int((keep.long() * (nb - 1 - blk)).sum())  # a kept row's later words
+    boxes_in = bsz * m * (16 + 1)
+    n_flags = bsz * nb * nb
+    if slots:
+        room = bsz * BLOCK * nb * (nb - 1) // 2
+        return {'nms_bits_count': bound_of(boxes_in + rows * 8, ops['count']),
+                'nms_bits_fill': bound_of(boxes_in + room * 16, ops['fill']),
+                'nms_resolve': bound_of(rows * 8 + kept_slots * 16 + bsz * m, 0)}
+    return {'nms_bits_count': bound_of(boxes_in + 2 * rows * 8 + (rows + 1) * 8 + n_flags,
+                                       ops['count']),
+            'nms_bits_fill': bound_of(boxes_in + n_flags + (rows + 1) * 8 + len(pairs) * 16,
+                                      ops['fill']),
+            'nms_resolve': bound_of(rows * 8 + 2 * bsz * nb * 8 + kept_pairs * 16 + bsz * m, 0)}
+
+
+def max_err(got, want):
+    """max |got - want| over integer or bool tensors; at least 1 where they differ."""
+    check(got.shape == want.shape, f'shapes differ: {tuple(got.shape)} and {tuple(want.shape)}')
+    if torch.equal(got, want):
+        return 0.
+    return max(1., float((got.double() - want.double()).abs().max()))
+
+
+def canonical(pairs, shape):
+    """Pairs ordered by block-major row and word, as the plain version orders
+    them (the kernel's order inside a row is not fixed)."""
+    bsz, m = shape
+    row = pairs[:, 1] & 0xffffffff
+    q = ((row % m) // BLOCK * bsz + row // m) * BLOCK + row % m % BLOCK
+    return pairs[torch.argsort((q << 32) | (pairs[:, 1] >> 32))]
+
+
+def hold_each(b, v, thresh, errs):
+    """Each NMS kernel against its plain version on the card, in the layout
+    and bands that ``bits_sweep`` takes for these inputs (``slots_layout``,
+    ``band_plan``), on the inputs the kernels before it gave. Raises unless
+    all agree bit for bit; keeps the largest |kernel - plain| of each kernel
+    in ``errs``. Returns the keep mask, the rows' offsets, the layout and the
+    bands."""
+    bsz, m = v.shape
+    nb = -(-m // BLOCK)
+    slots = slots_layout(bsz, m)
+    want = _suppression_counts(b, v, thresh)
+    start, diag, flags, nxt = nms_bits_count(b, v, thresh, packed=not slots)
+    found = {'nms_bits_count': max(max_err(got, w) for got, w in
+                                   zip((start, diag, flags, nxt), want) if got is not None)}
+    if not slots:
+        start.cumsum_(0)
+    bands = band_plan(start, bsz, m)
+    offsets = want[0].cumsum(0)                         # the plain offsets, for the records
+    removed, want_removed = (torch.zeros(bsz, nb, dtype=torch.int64, device=b.device)
+                             for _ in range(2))
+    keep, want_keep = torch.zeros_like(v), torch.zeros_like(v)
+    for r0, r1, base, size in bands:
+        pairs = nms_bits_fill(b, v, thresh, r0, r1, flags, start, base, size)
+        nms_resolve(v, diag, nxt, pairs, start, base, removed, keep, r0, r1)
+        # slots: the zero slots are no pairs; packed: the room past the band's pairs is unwritten
+        pairs = (pairs[pairs[:, 0] != 0] if slots
+                 else pairs[:int(offsets[r1 * bsz * BLOCK]) - base])
+        err = max_err(canonical(pairs, v.shape), _suppression_pairs(b, v, thresh, r0, r1))
+        found['nms_bits_fill'] = max(found.get('nms_bits_fill', 0.), err)
+        _resolve_blocks(v, diag, pairs, want_removed, want_keep, r0, r1)
+        err = max(max_err(keep, want_keep), max_err(removed, want_removed))
+        found['nms_resolve'] = max(found.get('nms_resolve', 0.), err)
+    for name, err in found.items():
+        check(err == 0., f'{name} and its plain version differ ({err})')
+        errs[name] = max(errs.get(name, 0.), err)
+    return keep, offsets, slots, bands
+
+
+def device_ms(fn, calls, attempts=3):
+    """Device time (ms) per launch of each NMS kernel over ``calls`` calls of
+    ``fn``, from ``torch.profiler``, with its launches per call. A profiling
+    session now and then records no device activity at all; it is repeated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            for key, name in DEVICE_NAMES:
+                if e.device_type == DeviceType.CUDA and key in e.key:
+                    out[name] = (e.self_device_time_total / 1e3 / e.count, round(e.count / calls))
+        if len(out) == len(DEVICE_NAMES):
+            return out
+    raise RuntimeError(f'chip_smoke: the profiler saw {sorted(out)} of the NMS kernels')
+
+
+def launch_floor_ms():
+    """Time per launch of an empty kernel on the current stream, back to back (CUDA events)."""
+    lib = resolve_library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    return cuda_ms(lambda: lib.cdt_empty_launch(stream), 2000, warmup=100)
+
+
+def time_sweep(label, b, v, keep, thresh, card, floor):
+    """The sweep's time per call and per kernel at one shape, beside its bound."""
+    t0 = time.perf_counter()
+    nms_sweep(b, v, thresh)
+    torch.cuda.synchronize()
+    iters = max(3, min(200, int(0.5 / (time.perf_counter() - t0))))
+    windows = sorted(cuda_ms(lambda: nms_sweep(b, v, thresh), iters) for _ in range(3))
+    ms = windows[1]                     # the median of three windows; the host's share varies
+    clocks = card_line('clocks.sm,power.draw,temperature.gpu')   # right after the windows
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        nms_sweep(b, v, thresh)
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    dev = device_ms(lambda: nms_sweep(b, v, thresh), min(iters, 10))
+    before = [k.launches for k in kernels.KERNELS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    nms_sweep(b, v, thresh)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - held
+    per_call = sum(k.launches for k in kernels.KERNELS) - sum(before)
+    bound_ms, bound_by, tests = nms_bound(b, v, keep, thresh)
+    kernels_ms = ', '.join(f'{name} {dev[name][0]:.4f} ms x{dev[name][1]}'
+                           for _, name in DEVICE_NAMES)
+    print(f'  [{card}] nms_sweep {label}: {ms:.4f} ms per call (median of 3 windows of {iters} '
+          f'calls, {windows[0]:.4f}-{windows[2]:.4f}; CUDA events), '
+          f'host {host_ms:.4f} ms per call (host clock, no synchronisation); on the device '
+          f'{kernels_ms} (profiler); {per_call} kernel launches per call, '
+          f'launch floor {floor:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}; {tests} pair '
+          f'tests); peak scratch {scratch / 2 ** 20:.1f} MiB; library call: none; SM clock, '
+          f'power, temperature after the windows: {clocks}', flush=True)
+    check(scratch <= SCRATCH_LIMIT, f'{label}: scratch {scratch} bytes above {SCRATCH_LIMIT}')
+    return ms, dev
 
 
 def to_dev(arrays, device):
@@ -174,9 +380,12 @@ def profile_step(step, label):
         print(f'    convolution {ms:9.3f} ms  x{count:<3d} input, weight: {shapes[:2]}', flush=True)
 
 
-def phase_kernels(rng, card):
-    """Phase 3: the NMS kernel against its plain version, bit-equal, on the card."""
-    print('== phase 3: kernel vs plain on the card (bit-equal keep masks)', flush=True)
+def phase_kernels(rng, card, errs):
+    """Phase 3: the NMS kernels against their plain versions, bit-equal, on the card."""
+    print('== phase 3: NMS kernels vs plain versions on the card (bit-equal)', flush=True)
+    floor = launch_floor_ms()
+    print(f'  [{card}] launch floor: {floor:.4f} ms per empty kernel launch on the same stream '
+          f'(CUDA events, 2000 back to back)', flush=True)
     cases = []
     for t in (0.2, 0.5, 0.8):
         cases.append((f'B=4 N=2048 t={t}', crowded_boxes(rng, 4, 2048, 200.), t))
@@ -187,32 +396,44 @@ def phase_kernels(rng, card):
     cases.append(('B=2 N=500 all invalid t=0.5', (bx, sc, np.zeros((2, 500), bool)), 0.5))
     for t in (0.2, 0.5, 0.8):
         cases.append((f'knife-edge 512 pairs IoU=t={t}', knife_edge_pairs(rng, t), t))
-    worst = 0.
+    # stitch scale, at the density of the N=16384 case: nms_chunked's per-chunk
+    # pass on a 16,384^2 mosaic (441 tiles x 2048 slots in chunks of 16,384),
+    # and one image of 262,144 boxes, the JAX package's largest exact NMS. A
+    # generator of their own leaves the later phases' inputs as they were.
+    stitch = np.random.RandomState(SEED + 1)
+    cases.append(('B=1 N=2048 t=0.5', crowded_boxes(stitch, 1, 2048, 200.), 0.5))
+    cases.append(('B=56 N=16384 t=0.5', crowded_boxes(stitch, 56, 16384, 800.), 0.5))
+    cases.append(('B=1 N=262144 t=0.5', crowded_boxes(stitch, 1, 262144, 3200.), 0.5))
+    timed = ('B=4 N=2048 t=0.2', 'B=1 N=2048 t=0.5', 'B=1 N=16384 t=0.5', 'B=56 N=16384 t=0.5',
+             'B=1 N=262144 t=0.5')
     for label, arrays, t in cases:
         boxes, scores, valid = to_dev(arrays, 'cuda')
         _, b, v = sort_by_score(boxes, scores, valid)
+        keep, start, slots, bands = hold_each(b, v, t, errs)
         k = nms_sweep(b, v, t)
+        start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start_ev.record()
         p = _nms_sweep(b, v, t)
-        end_to_end = nms_padded(boxes, scores, valid, t).cpu()
-        cpu = nms_padded(*to_dev(arrays, 'cpu'), t)
-        torch.cuda.synchronize()
-        diff = int((k != p).sum()) + int((end_to_end != cpu).sum())
-        worst = max(worst, float((k.float() - p.float()).abs().max()))
-        print(f'  {label}: kept {int(k.sum())} of {int(v.sum())} valid, '
-              f'kernel != plain: {int((k != p).sum())}, nms_padded card != cpu: '
-              f'{int((end_to_end != cpu).sum())}', flush=True)
-        check(diff == 0, f'{label}: kernel and plain keep masks differ')
-        check(not bool(end_to_end[~valid.cpu()].any()), f'{label}: an invalid box was kept')
-        if label.startswith('B=1 N=16384'):
-            big = (b, v, k, t)
-    b, v, k, t = big
-    ms = cuda_ms(lambda: nms_sweep(b, v, t), 50)
-    plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 2, warmup=1)
-    bound_ms, bound_by, tests = nms_bound(b, v, k, t)
-    print(f'  [{card}] nms_sweep B=1 N=16384 t={t}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, '
-          f'bound {bound_ms:.6f} ms ({bound_by}; {tests} pair tests), library call: none',
-          flush=True)
-    return worst
+        end_ev.record()
+        end_ev.synchronize()
+        plain_ms = start_ev.elapsed_time(end_ev)            # the first call, warm from hold_each
+        check(torch.equal(k, p) and torch.equal(keep, p), f'{label}: the sweep and plain differ')
+        line = (f'  {label}: kept {int(k.sum())} of {int(v.sum())} valid, {int(start[-1])} pairs '
+                f'in {len(bands)} band(s), {"slots" if slots else "packed"} layout; '
+                f'each kernel == plain, sweep == _nms_sweep')
+        if v.shape[1] <= 16384 and v.shape[0] <= 4:  # the CPU's plain sweep takes minutes above
+            end_to_end = nms_padded(boxes, scores, valid, t).cpu()
+            cpu = nms_padded(*to_dev(arrays, 'cpu'), t)
+            check(torch.equal(end_to_end, cpu), f'{label}: nms_padded on card and CPU differ')
+            check(not bool(end_to_end[~valid.cpu()].any()), f'{label}: an invalid box was kept')
+            line += ', nms_padded card == cpu'
+        print(line, flush=True)
+        if label in timed:
+            if v.shape[1] <= 16384:
+                plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 2, warmup=0)
+            time_sweep(label, b, v, k, t, card, floor)
+            print(f'  [{card}] plain _nms_sweep {label}: {plain_ms:.3f} ms', flush=True)
+    return floor
 
 
 def phase_card_vs_cpu(rng):
@@ -269,7 +490,7 @@ def phase_card_vs_cpu(rng):
     check(frac >= 0.99 and float(diffs.mean()) < 0.1, 'contours differ beyond the gates')
 
 
-def main_path(rng, card):
+def main_path(rng, card, errs, floor):
     """Phase 5: full-width CpnU22 on 1024^2 tiles, fp32 batch 1 and bf16 batch 4."""
     print('== phase 5: main path, CpnU22 (full width) on 1024^2 tiles', flush=True)
     torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
@@ -294,22 +515,23 @@ def main_path(rng, card):
         k.launches = 0
     runs = []
     for name, m, x, thresh in configs:
-        before = nms_sweep.launches
+        before = sum(k.launches for k in kernels.KERNELS)
         pre = m.forward_padded(x, score_thresh=thresh, nms=False)
         out = m.forward_padded(x, score_thresh=thresh)
         res = m(x, score_thresh=thresh)               # the user API: ragged per-image results
         torch.cuda.synchronize()
-        runs.append((name, m, x, thresh, pre, out, res, nms_sweep.launches - before))
+        runs.append((name, m, x, thresh, pre, out, res,
+                     sum(k.launches for k in kernels.KERNELS) - before))
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     print(f'  kernel launches in the main path run: {launches}', flush=True)
     check(all(n > 0 for n in launches.values()), 'a kernel of the path was never launched')
 
-    kernel_rec = None
+    kernel_rec = {}
     for name, m, x, thresh, pre, out, res, delta in runs:
         batch = x.shape[0]
         n_pre = pre['valid'].sum(1).tolist()
         n_post = out['valid'].sum(1).tolist()
-        check(delta > 0, f'{name}: NMS kernel not launched')
+        check(delta > 0, f'{name}: no NMS kernel launched')
         check(all(n == 2048 for n in n_pre), f'{name}: NMS saw {n_pre} valid boxes, not 2048')
         check(all(n >= 1 for n in n_post), f'{name}: no box kept')
         check([len(c) for c in res['contours']] == n_post, f'{name}: ragged results disagree')
@@ -335,25 +557,37 @@ def main_path(rng, card):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         profile_step(step, f'[{card}] {name} batch {batch}')
 
-        # the NMS kernel on this run's own inputs, against its plain version
+        # the NMS kernels on this run's own inputs, against their plain versions
+        t = m.nms_thresh
         _, b, v = sort_by_score(pre['boxes'], pre['scores'], pre['valid'])
-        k = nms_sweep(b, v, m.nms_thresh)
-        p = _nms_sweep(b, v, m.nms_thresh)
-        err = float((k.float() - p.float()).abs().max())
-        check(err == 0., f'{name}: kernel and plain keep masks differ on the main path inputs')
-        ms = cuda_ms(lambda: nms_sweep(b, v, m.nms_thresh), 200)
-        plain_ms = cuda_ms(lambda: _nms_sweep(b, v, m.nms_thresh), 3, warmup=1)
-        bound_ms, bound_by, tests = nms_bound(b, v, k, m.nms_thresh)
+        k, _, slots, _ = hold_each(b, v, t, errs)
+        check(torch.equal(k, _nms_sweep(b, v, t)), f'{name}: the sweep and plain differ')
         print(f'  [{card}] {name} batch {batch}: {batch / dt:.3f} tiles/s '
               f'({1e3 * dt:.2f} ms per forward incl. readback), peak memory '
               f'{peak:.2f} GiB, threshold {thresh:.6f}, valid before NMS {n_pre}, after {n_post}, '
-              f'NMS launches {delta}', flush=True)
-        print(f'  [{card}] {name} nms_sweep B={batch} N=2048: kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}; {tests} pair tests), '
-              f'library call: none (no single PyTorch call computes greedy NMS)', flush=True)
+              f'NMS kernel launches {delta}', flush=True)
+        ms, dev = time_sweep(f'B={batch} N=2048 t={t} ({name} main path)', b, v, k, t, card, floor)
+        plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 3, warmup=1)
+        print(f'  [{card}] plain _nms_sweep B={batch} N=2048 ({name} main path): {plain_ms:.3f} ms',
+              flush=True)
         if name == 'bf16':
-            kernel_rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                              max_abs_err=err)
+            nb = -(-v.shape[1] // BLOCK)
+            diag = _suppression_counts(b, v, t)[1]
+            pairs = _suppression_pairs(b, v, t, 0, nb)
+            removed = torch.zeros(batch, nb, dtype=torch.int64, device=b.device)
+            keep = torch.empty_like(v)
+            plain = {'nms_bits_count': lambda: _suppression_counts(b, v, t),
+                     'nms_bits_fill': lambda: _suppression_pairs(b, v, t, 0, nb),
+                     'nms_resolve': lambda: _resolve_blocks(v, diag, pairs, removed, keep, 0, nb)}
+            bounds = kernel_bounds(b, v, k, pairs, slots)
+            for name_k, fn in plain.items():
+                kernel_rec[name_k] = dict(ms=dev[name_k][0], plain_ms=cuda_ms(fn, 2, warmup=1),
+                                          bound_ms=bounds[name_k][0], bound_by=bounds[name_k][1])
+                print(f'  [{card}] {name_k} B={batch} N=2048 ({name} main path, '
+                      f'{"slots" if slots else "packed"} layout): '
+                      f'{dev[name_k][0]:.4f} ms on the device, plain '
+                      f'{kernel_rec[name_k]["plain_ms"]:.3f} ms, bound '
+                      f'{bounds[name_k][0]:.6f} ms ({bounds[name_k][1]})', flush=True)
     return launches, kernel_rec
 
 
@@ -373,24 +607,27 @@ def main():
     check(torch.cuda.device_count() >= 1, 'no card')
 
     print('== phase 2: build the kernels', flush=True)
-    built = nms_library()
-    print(f'  {os.path.relpath(built.path, HERE)}: built in {built.build_seconds:.2f} s '
-          f'(0 = reused)\n{built.log.strip()}', flush=True)
+    with ThreadPoolExecutor() as pool:                  # one nvcc per source, all at once
+        built = list(pool.map(lambda load: load(), (bits_library, resolve_library)))
+    for lib in built:
+        print(f'  {os.path.relpath(lib.path, HERE)}: built in {lib.build_seconds:.2f} s '
+              f'(0 = reused)\n{lib.log.strip()}', flush=True)
 
     rng = np.random.RandomState(SEED)
-    worst = phase_kernels(rng, card)
+    errs = {}
+    floor = phase_kernels(rng, card, errs)
     phase_card_vs_cpu(rng)
-    launches, rec = main_path(rng, card)
+    launches, rec = main_path(rng, card, errs, floor)
     check('jax' not in sys.modules and 'celldetection_tpu' not in sys.modules,
           'JAX or the JAX package was imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
-        'name': 'nms_sweep', 'route': 'cuda',
-        'source': 'celldetection_tpu_torch/csrc/nms_sweep.cu',
+        'name': name, 'route': 'cuda', 'source': f'celldetection_tpu_torch/csrc/{SOURCES[name]}',
         'replaces': 'celldetection_tpu/kernels/nms_pallas.py:59',
-        'launches': launches['nms_sweep'], 'max_abs_err': max(worst, rec['max_abs_err']),
-        'ms': rec['ms'], 'plain_ms': rec['plain_ms'], 'bound_ms': rec['bound_ms'],
-        'bound_by': rec['bound_by'], 'library_ms': None}]}
+        'launches': launches[name], 'max_abs_err': errs[name],
+        'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
+        'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],
+        'library_ms': None} for name in SOURCES]}
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -5,7 +5,8 @@ must give the JAX package's keep masks bit for bit. Where N >= 2048 the JAX
 package runs its XLA ``_nms_sweep`` on the CPU, which
 ``kernels/nms_pallas.py`` states matches the Pallas kernel bit for bit; the
 kernel itself is also run here in interpret mode at N = 2048. The CUDA
-kernel is held against the plain sweep in the one test marked ``cuda``.
+kernels are held against the plain sweep in the test marked ``cuda``, and
+each against its own plain version in ``tests/test_torch_nms_kernels.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +17,7 @@ from celldetection_tpu.kernels.nms_pallas import nms_pallas
 from celldetection_tpu.ops import batched_box_nms as jax_batched_box_nms
 from celldetection_tpu.ops.boxes import _suppression_matrix as jax_suppression_matrix
 from celldetection_tpu.ops.boxes import nms_padded as jax_nms_padded
-from celldetection_tpu_torch.kernels import nms_sweep
+from celldetection_tpu_torch.kernels import KERNELS, nms_sweep
 from celldetection_tpu_torch.ops import batched_box_nms, nms_padded
 from celldetection_tpu_torch.ops.boxes import _nms_sweep, sort_by_score
 
@@ -124,13 +125,13 @@ def test_sort_by_score_is_stable_descending():
 
 
 def test_nms_sweep_wrapper_routes_by_device():
-    """CPU tensors take the plain sweep and count no launch; other non-CUDA
-    devices raise rather than fall back."""
+    """CPU tensors take the plain sweep and count no kernel launch; other
+    non-CUDA devices raise rather than fall back."""
     boxes, _, valid = crowded_boxes(2, (2, 300))
     b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
-    before = nms_sweep.launches
+    before = [k.launches for k in KERNELS]
     assert torch.equal(nms_sweep(b, v, 0.5), _nms_sweep(b, v, 0.5))
-    assert nms_sweep.launches == before
+    assert [k.launches for k in KERNELS] == before
     with pytest.raises(ValueError, match='no kernel'):
         nms_sweep(b.to('meta'), v.to('meta'), 0.5)
 
@@ -143,9 +144,9 @@ def test_nms_kernel_matches_plain_on_card():
         arrays = crowded_boxes(seed, shape, extent=200. * (shape[1] // 2048 or 1))
         boxes, scores, valid = (torch.from_numpy(a).cuda() for a in arrays)
         _, b, v = sort_by_score(boxes, scores, valid)
-        before = nms_sweep.launches
+        before = [k.launches for k in KERNELS]
         keep = nms_sweep(b, v, thresh)
-        assert nms_sweep.launches == before + 1
+        assert [k.launches for k in KERNELS] == [n + 1 for n in before]   # one band
         assert torch.equal(keep, _nms_sweep(b, v, thresh))
         np.testing.assert_array_equal(nms_padded(boxes, scores, valid, thresh).cpu().numpy(),
                                       port(nms_padded, arrays, thresh))
