@@ -25,10 +25,13 @@
 //     reads), into diag [B, nb * 64] u64 (0 past n). For the packed layout it
 //     also writes each row's word of the next block into nxt [B, nb * 64],
 //     the number of its later words that are not zero into start [1 + q]
-//     (i64), and flags [B, nb, nb] u8, set where row block r has a word in
-//     column block c that is not zero; the launch zeroes start and flags
-//     first, and an exclusive prefix sum over start in place (the wrapper's
-//     torch.cumsum) makes start [q] the offset of row q's first pair;
+//     (i64), and flags, set where row block r has a word in column block c
+//     that is not zero: [B, nb, nb] u8 or, for large images (`large`, more
+//     than 4,096 blocks: kernels/nms.py:large_layout), one bit per block
+//     pair, bit c % 32 of u32 word [B, nb, ceil(nb / 32)] c / 32 (32 MiB at
+//     n = 2^20 where bytes would take 256 MiB); the launch zeroes start and
+//     flags first, and an exclusive prefix sum over start in place (the
+//     wrapper's torch.cumsum) makes start [q] the offset of row q's first pair;
 //   - nms_bits_fill writes the later words that are not zero as Pair {bits,
 //     row = b * n + i, word = c} (nms_common.cuh). Packed, for the rows of a
 //     band of row blocks, it tests again only the column blocks that flags
@@ -70,8 +73,9 @@
 // Scratch bound: diag 8 B per box (the boxes padded to a multiple of 64) and,
 // slots, B * 64 * nb * (nb - 1) / 2 pairs of 16 B (2 MiB at B = 4, n = 2048).
 // Packed: nxt, start and the fill's copy of it 8 B per box each, flags
-// B * (n / 64)^2 bytes (16 MiB at n = 262,144, the wrapper's largest) and the
-// pairs, 16 B each. The wrapper (kernels/nms.py) sizes the pairs from the
+// B * (n / 64)^2 bytes (16 MiB at n = 262,144), or an eighth of that for large
+// images (32 MiB at n = 2^20, the wrapper's largest), and the pairs, 16 B
+// each. The wrapper (kernels/nms.py) sizes the pairs from the
 // counts and walks the row blocks in bands of at most PAIR_BUDGET pairs
 // (128 MiB), or one row block's pairs where that is more; where even every
 // later word of every row would fit in PAIR_BUDGET, it allocates that bound
@@ -164,8 +168,10 @@ __device__ __forceinline__ bool tame(float4 b, float area) {
 // diagonal one: the count kernel stores its column words, thread t for column
 // t (the rows before t in the block that suppress t), and no pair. The
 // layout is packed where the count has `counts` and the fill a `cursor`,
-// slots otherwise; in slots the count does the diagonal blocks only.
-template <bool kFill>
+// slots otherwise; in slots the count does the diagonal blocks only. kLarge:
+// the flags are bits (a separate build of the kernel, so that images of up to
+// 262,144 boxes run the code they ran before the bits existed).
+template <bool kFill, bool kLarge>
 __global__ void __launch_bounds__(kThreads)
 nms_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid, int n,
                 int nb, int band, float thresh, int r0, unsigned long long* __restrict__ counts,
@@ -190,8 +196,18 @@ nms_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ va
   const size_t row = static_cast<size_t>(b) * nb * kBlock + i;  // in diag and nxt, [B, nb * 64]
   const size_t q = (static_cast<size_t>(r) * gridDim.z + b) * kBlock + t;  // block-major row
   const bool packed = kFill ? cursor != nullptr : counts != nullptr;
-  // flags[(b * nb + r) * nb + c]: some word of row block r in column block c is not zero
-  uint8_t* const flag = packed ? flags + (static_cast<size_t>(b) * nb + r) * nb + c_begin : nullptr;
+  // some word of row block r in column block c is not zero: byte
+  // flags[(b * nb + r) * nb + c] or, large, bit c % 32 of u32 word
+  // (b * nb + r) * ceil(nb / 32) + c / 32
+  const size_t flag_row = static_cast<size_t>(b) * nb + r;
+  uint8_t* const flag = packed && !kLarge ? flags + flag_row * nb + c_begin : nullptr;
+  unsigned* const flag_bits =
+      packed && kLarge ? reinterpret_cast<unsigned*>(flags) + flag_row * ((nb + 31) / 32) : nullptr;
+  auto flagged = [&](int k) {
+    const int c = c_begin + k;
+    if constexpr (kLarge) return ((flag_bits[c >> 5] >> (c & 31)) & 1u) != 0u;
+    return flag[k] != 0;
+  };
   // the column block after r: each row's word there goes to nxt (count,
   // packed); the last row block's rows have none, and the diagonal CTA
   // writes their 0
@@ -209,7 +225,7 @@ nms_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ va
 #pragma unroll
   for (int k = 0; k < kBand; ++k) {
     const bool diagonal = k == 0 && has_diag;
-    if (k < nc && (kFill ? !diagonal && (!packed || flag[k]) : packed || diagonal))
+    if (k < nc && (kFill ? !diagonal && (!packed || flagged(k)) : packed || diagonal))
       todo |= 1u << k;
   }
   if (!todo) return;  // uniform: the fill finds only zero words here
@@ -268,10 +284,25 @@ nms_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ va
     if (has_diag) diag[row] = words[0] | (row_in ? 1ull << t : 0ull);  // own bit: valid
     if (!packed) return;
     if (no_next) nxt[row] = 0ull;
+    unsigned marked = 0u;  // bit k: column block c_begin + k holds a word of this row
 #pragma unroll
     for (int k = 0; k < kBand; ++k) {
-      if (k >= first && words[k] != 0ull) flag[k] = 1;  // the same byte from many threads
+      if (k >= first && words[k] != 0ull) {
+        if constexpr (kLarge)
+          marked |= 1u << k;
+        else
+          flag[k] = 1;  // the same byte from many threads
+      }
       if (has_next && k == k_next) nxt[row] = words[k];
+    }
+    if constexpr (kLarge) {  // one atomicOr per marked block from each warp
+      marked = __reduce_or_sync(0xffffffffu, marked);
+      if ((t & 31) == 0)
+        for (int k = 0; k < kBand; ++k)
+          if ((marked >> k) & 1u) {
+            const int c = c_begin + k;
+            atomicOr(flag_bits + (c >> 5), 1u << (c & 31));
+          }
     }
     if (nz) atomicAdd(counts + q, static_cast<unsigned long long>(nz));
     return;
@@ -303,6 +334,7 @@ int band_of(int batch, int nb) {
   return band;
 }
 
+template <bool kLarge>
 int launch(bool fill, const void* boxes, const void* valid, int batch, int n, float thresh,
            int r0, int r1, unsigned long long* counts, unsigned long long* diag,
            unsigned long long* nxt, uint8_t* flags, unsigned long long* cursor, Pair* pairs,
@@ -317,11 +349,11 @@ int launch(bool fill, const void* boxes, const void* valid, int batch, int n, fl
   const auto* bx = static_cast<const float4*>(boxes);
   const auto* v = static_cast<const uint8_t*>(valid);
   if (fill)
-    nms_bits_kernel<true><<<grid, kThreads, 0, s>>>(bx, v, n, nb, band, thresh, r0, counts, diag,
-                                                     nxt, flags, cursor, pairs, base);
+    nms_bits_kernel<true, kLarge><<<grid, kThreads, 0, s>>>(
+        bx, v, n, nb, band, thresh, r0, counts, diag, nxt, flags, cursor, pairs, base);
   else
-    nms_bits_kernel<false><<<grid, kThreads, 0, s>>>(bx, v, n, nb, band, thresh, r0, counts,
-                                                      diag, nxt, flags, cursor, pairs, base);
+    nms_bits_kernel<false, kLarge><<<grid, kThreads, 0, s>>>(
+        bx, v, n, nb, band, thresh, r0, counts, diag, nxt, flags, cursor, pairs, base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,42 +361,55 @@ int launch(bool fill, const void* boxes, const void* valid, int batch, int n, fl
 
 // Each launches on `stream` and returns the CUDA error of the launch (0 =
 // success). Packed: `start` has nb * batch * 64 + 1 entries, `nxt` batch * n
-// and `flags` batch * nb * nb; slots: all three are null and only `diag` is
+// and `flags` batch * nb * nb bytes, or batch * nb * ceil(nb / 32) u32 words
+// where `large` is not 0; slots: all three are null and only `diag` is
 // written.
 extern "C" int cdt_nms_bits_count(const void* boxes, const void* valid, void* start, void* diag,
                                   void* nxt, void* flags, int batch, int n, float thresh,
-                                  void* stream) {
+                                  int large, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const int nb = (n + kBlock - 1) / kBlock;
   auto* counts = static_cast<unsigned long long*>(start);
   if (counts) {
     const size_t rows = static_cast<size_t>(nb) * batch * kBlock;
+    const size_t flag_bytes = static_cast<size_t>(batch) * nb *
+                              (large ? (nb + 31) / 32 * sizeof(unsigned) : nb);
     const auto s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaMemsetAsync(flags, 0, static_cast<size_t>(batch) * nb * nb, s);
+    cudaError_t err = cudaMemsetAsync(flags, 0, flag_bytes, s);
     if (err == cudaSuccess)
       err = cudaMemsetAsync(counts, 0, (rows + 1) * sizeof(unsigned long long), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return launch(false, boxes, valid, batch, n, thresh, 0, nb, counts ? counts + 1 : nullptr,
-                static_cast<unsigned long long*>(diag), static_cast<unsigned long long*>(nxt),
-                static_cast<uint8_t*>(flags), nullptr, nullptr, 0, stream);
+  auto* const d = static_cast<unsigned long long*>(diag);
+  auto* const x = static_cast<unsigned long long*>(nxt);
+  auto* const f = static_cast<uint8_t*>(flags);
+  auto* const c = counts ? counts + 1 : nullptr;
+  return large ? launch<true>(false, boxes, valid, batch, n, thresh, 0, nb, c, d, x, f, nullptr,
+                              nullptr, 0, stream)
+               : launch<false>(false, boxes, valid, batch, n, thresh, 0, nb, c, d, x, f, nullptr,
+                               nullptr, 0, stream);
 }
 
 // Packed: `cursor` is a copy of the prefix-summed `start`, `base` =
-// start[r0 * batch * 64]. Slots (`cursor` null, one band of all row blocks):
-// `pairs` has slot_of(nb - 1, 0, batch, nb) entries, zeroed here first.
+// start[r0 * batch * 64], `flags` and `large` as the count's. Slots (`cursor`
+// null, one band of all row blocks): `pairs` has slot_of(nb - 1, 0, batch, nb)
+// entries, zeroed here first.
 extern "C" int cdt_nms_bits_fill(const void* boxes, const void* valid, const void* flags,
                                  void* cursor, void* pairs, int batch, int n, float thresh, int r0,
-                                 int r1, long long base, void* stream) {
+                                 int r1, long long base, int large, void* stream) {
   if (!cursor && batch > 0 && n > 0) {
     const int nb = (n + kBlock - 1) / kBlock;
     const cudaError_t err = cudaMemsetAsync(pairs, 0, slot_of(nb - 1, 0, batch, nb) * sizeof(Pair),
                                             static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return launch(true, boxes, valid, batch, n, thresh, r0, r1, nullptr, nullptr, nullptr,
-                static_cast<uint8_t*>(const_cast<void*>(flags)),
-                static_cast<unsigned long long*>(cursor), static_cast<Pair*>(pairs), base, stream);
+  auto* const f = static_cast<uint8_t*>(const_cast<void*>(flags));
+  auto* const c = static_cast<unsigned long long*>(cursor);
+  auto* const p = static_cast<Pair*>(pairs);
+  return large ? launch<true>(true, boxes, valid, batch, n, thresh, r0, r1, nullptr, nullptr,
+                              nullptr, f, c, p, base, stream)
+               : launch<false>(true, boxes, valid, batch, n, thresh, r0, r1, nullptr, nullptr,
+                               nullptr, f, c, p, base, stream);
 }
 
 extern "C" const char* cdt_cuda_error_string(int code) {

@@ -48,9 +48,18 @@
 //     (`carry`, from nms_bits.cu's next words or the first slot of each row),
 //     so the block it resolves never waits for them.
 //
+// Large images (`large`, more than 4,096 blocks: kernels/nms.py:large_layout)
+// take a variant whose removed bits still live in shared memory, beside a ring
+// of stages that hold 1,024 pairs each instead of 2,048 (a stitch-scale block
+// holds a few hundred), and which reads each block's segment bounds from
+// `start` in device memory when it stages or ORs the block, instead of keeping
+// them in shared memory: up to 2^20 boxes (16,384 blocks) fit.
+//
 // Scratch bound: nothing of its own. Shared memory: 4 x 33,792 bytes of
 // stages, n / 64 * 8 bytes of removed bits and 8 bytes per row block of
-// segment bounds (200,704 bytes at n = 262,144, the wrapper's largest).
+// segment bounds (200,704 bytes at n = 262,144); large, 4 x 17,408 bytes of
+// stages and the removed bits (200,704 bytes at n = 2^20, the wrapper's
+// largest).
 //
 // Built with -DCDT_NMS_TRACE (kernels/nms.py: resolve_library(trace=True)),
 // the kernel also sums CTA 0's clock cycles by phase of the walk, for warp 0
@@ -70,8 +79,10 @@ using cdt_nms::slot_of;
 constexpr int kThreads = 1024;  // threads per CTA: warp 0 resolves, warps 1-31 stage and OR
 
 constexpr int kStages = 4;   // the block ORed, the block resolved and the next two
-constexpr int kCap = 2048;   // pairs of a block staged in shared memory (a main-path
-                             // block has at most 64 x 31 = 1,984); the rest are read directly
+// pairs of a block staged in shared memory (a main-path block has at most
+// 64 x 31 = 1,984); the rest are read directly. Large images stage fewer.
+constexpr int kCapSmall = 2048;
+constexpr int kCapLarge = 1024;
 
 // Phases of the walk, for the instrumented build's clock sums.
 enum Phase {
@@ -111,6 +122,7 @@ struct PhaseClock {  // the plain build: no clock is read
 };
 #endif
 
+template <int kCap>
 struct Stage {
   Pair pairs[kCap];                 // the block's first kCap pairs
   unsigned long long cols[kBlock];  // the block's column words (own bit: valid)
@@ -122,17 +134,19 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
 }
 
+template <bool kLarge>
 __global__ void __launch_bounds__(kThreads)
 nms_resolve_kernel(const unsigned long long* __restrict__ diag,
                    const unsigned long long* __restrict__ nxt, const Pair* __restrict__ pairs,
                    const long long* __restrict__ start, long long base,
                    unsigned long long* __restrict__ removed_g, uint8_t* __restrict__ keep, int n,
                    int nb, int r0, int r1) {
+  constexpr int kCap = kLarge ? kCapLarge : kCapSmall;
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage* const stages = reinterpret_cast<Stage*>(smem);
+  Stage<kCap>* const stages = reinterpret_cast<Stage<kCap>*>(smem);
   unsigned long long* const removed = reinterpret_cast<unsigned long long*>(stages + kStages);
-  int* const seg_lo = reinterpret_cast<int*>(removed + nb);  // each block's pairs,
-  int* const seg_hi = seg_lo + (r1 - r0);                     // relative to `base`
+  int* const seg_lo = reinterpret_cast<int*>(removed + nb);  // each block's pairs, relative
+  int* const seg_hi = seg_lo + (r1 - r0);                     // to `base` (not large)
   __shared__ unsigned long long kept_bits[2];                 // of blocks r and r - 1
   PhaseClock clk;
 
@@ -147,33 +161,46 @@ nms_resolve_kernel(const unsigned long long* __restrict__ diag,
   // block r's pairs: packed, [start[q], start[q + 64]) - base with
   // q = (r * B + b) * 64; slots, its 64 * (nb - 1 - r) slots. A band holds at
   // most PAIR_BUDGET pairs, or one row block's (kernels/nms.py): int offsets.
-  for (int r = r0 + t; r < r1; r += kThreads) {
+  for (int r = r0 + t; !kLarge && r < r1; r += kThreads) {
     const size_t q = (static_cast<size_t>(r) * gridDim.x + b) * kBlock;
     seg_lo[r - r0] = static_cast<int>(start ? start[q] - base : slot_of(r, b, gridDim.x, nb));
     seg_hi[r - r0] = static_cast<int>(start ? start[q + kBlock] - base
                                             : seg_lo[r - r0] + kBlock * (nb - 1 - r));
   }
+  // block r's pairs [lo, hi) relative to `base`; large images are packed
+  auto bounds = [&](int r, int& lo, int& hi) {
+    if (kLarge) {
+      const size_t q = (static_cast<size_t>(r) * gridDim.x + b) * kBlock;
+      lo = static_cast<int>(start[q] - base);
+      hi = static_cast<int>(start[q + kBlock] - base);
+    } else {
+      lo = seg_lo[r - r0];
+      hi = seg_hi[r - r0];
+    }
+  };
   // stage block r by cp.async, 16 bytes a copy, spread over the threads
   // [first, first + stride): its column words, next words (packed) and first
   // kCap pairs
   auto stage = [&](int r, int first, int stride) {
     if (r >= r1) return;
-    Stage& st = stages[r % kStages];
+    Stage<kCap>& st = stages[r % kStages];
     const size_t row0 = static_cast<size_t>(r) * kBlock;
     for (int x = first; x < kBlock / 2; x += stride) {
       cp_async16(&st.cols[2 * x], diag + row0 + 2 * x);
       if (start) cp_async16(&st.next[2 * x], nxt + row0 + 2 * x);
     }
-    const int lo = seg_lo[r - r0], hi = seg_hi[r - r0];
+    int lo, hi;
+    bounds(r, lo, hi);
     for (int p = first; p < kCap && lo + p < hi; p += stride)
       cp_async16(&st.pairs[p], pairs + lo + p);
   };
   // the kept rows of block r OR their later words into removed
   auto apply = [&](int r, int first, int stride) {
-    const Stage& st = stages[r % kStages];
+    const Stage<kCap>& st = stages[r % kStages];
     const unsigned long long kb = kept_bits[r & 1];
     if (!kb) return;
-    const int lo = seg_lo[r - r0], hi = seg_hi[r - r0];
+    int lo, hi;
+    bounds(r, lo, hi);
     for (int p = first; lo + p < hi; p += stride) {
       const Pair pr = p < kCap ? st.pairs[p] : pairs[lo + p];
       if (pr.bits && ((kb >> ((pr.row - static_cast<int>(img)) & (kBlock - 1))) & 1ull))
@@ -205,7 +232,7 @@ nms_resolve_kernel(const unsigned long long* __restrict__ diag,
       // after at most 65 rounds and in practice after the longest chain of
       // suppressions in the block. Word r may still be receiving block
       // r - 1's ORs from the other warps: `carry` holds those bits already.
-      const Stage& st = stages[r % kStages];
+      const Stage<kCap>& st = stages[r % kStages];
       const unsigned long long own0 = 1ull << t, own1 = 1ull << (t + 32);
       const unsigned long long c0 = st.cols[t], c1 = st.cols[t + 32];
       const unsigned long long gone = removed[r] | carry;
@@ -260,32 +287,45 @@ nms_resolve_kernel(const unsigned long long* __restrict__ diag,
 
 __global__ void empty_kernel() {}
 
-}  // namespace
-
-// Launches on `stream`; returns cudaGetLastError() of the launch (0 = success).
-// `start` null: the slots layout (one band of all row blocks). `removed` may be
-// null where this band is the only one.
-extern "C" int cdt_nms_resolve(const void* diag, const void* nxt, const void* pairs,
-                               const void* start, long long base, void* removed, void* keep,
-                               int batch, int n, int r0, int r1, void* stream) {
-  if (batch <= 0 || n <= 0 || r1 <= r0) return 0;
+template <bool kLarge>
+int launch(const void* diag, const void* nxt, const void* pairs, const void* start,
+           long long base, void* removed, void* keep, int batch, int n, int r0, int r1,
+           void* stream) {
   const int nb = (n + kBlock - 1) / kBlock;
-  const size_t smem = kStages * sizeof(Stage) + nb * sizeof(unsigned long long) +
-                      2 * (r1 - r0) * sizeof(int);
+  const size_t smem = kStages * sizeof(Stage<kLarge ? kCapLarge : kCapSmall>) +
+                      nb * sizeof(unsigned long long) +
+                      (kLarge ? 0 : 2 * (r1 - r0) * sizeof(int));
   static int smem_allowed[64] = {};  // per device: the kernel's shared memory limit as set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= 64 || static_cast<int>(smem) > smem_allowed[dev])) {
-    err = cudaFuncSetAttribute(nms_resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(nms_resolve_kernel<kLarge>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err == cudaSuccess && dev < 64) smem_allowed[dev] = static_cast<int>(smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_resolve_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  nms_resolve_kernel<kLarge><<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned long long*>(diag), static_cast<const unsigned long long*>(nxt),
       static_cast<const Pair*>(pairs), static_cast<const long long*>(start), base,
       static_cast<unsigned long long*>(removed), static_cast<uint8_t*>(keep), n, nb, r0, r1);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches on `stream`; returns cudaGetLastError() of the launch (0 = success).
+// `start` null: the slots layout (one band of all row blocks). `removed` may be
+// null where this band is the only one. `large` not 0: the variant for large
+// images, which are packed (`start` not null).
+extern "C" int cdt_nms_resolve(const void* diag, const void* nxt, const void* pairs,
+                               const void* start, long long base, void* removed, void* keep,
+                               int batch, int n, int r0, int r1, int large, void* stream) {
+  if (batch <= 0 || n <= 0 || r1 <= r0) return 0;
+  if (large && !start) return static_cast<int>(cudaErrorInvalidValue);
+  return large ? launch<true>(diag, nxt, pairs, start, base, removed, keep, batch, n, r0, r1, stream)
+               : launch<false>(diag, nxt, pairs, start, base, removed, keep, batch, n, r0, r1,
+                               stream);
 }
 
 // An empty kernel on `stream`: the floor under any launch, for measurements.

@@ -30,6 +30,10 @@ every row would fit in ``PAIR_BUDGET`` (up to ~23,000 boxes in one image)
 there is one band and that bound sizes the scratch, otherwise one read of
 the counts on the host cuts the row blocks into bands of at most
 ``PAIR_BUDGET`` pairs, and the removed bits carry from one band to the next.
+:func:`large_layout` marks images of more than ``LARGE_BLOCKS`` blocks
+(262,144 boxes, the JAX package's largest exact NMS) up to ``MAX_BOXES``
+(2^20): their block flags are bits, not bytes, and their resolve stages fewer
+pairs a block, so that the removed bits of 2^20 boxes fit in shared memory.
 The sources explain what bounds each kernel on this card and what its design
 does about it.
 
@@ -50,19 +54,23 @@ from ..ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks, _suppression_counts
 from .build import KernelLibrary, build_library
 
 __all__ = ['nms_sweep', 'bits_sweep', 'nms_bits_count', 'nms_bits_fill', 'nms_resolve',
-           'bits_library', 'resolve_library', 'slots_layout', 'band_plan', 'pair_bands',
-           'PAIR_BUDGET', 'MAX_BOXES', 'SLOT_BLOCKS']
+           'bits_library', 'resolve_library', 'slots_layout', 'large_layout', 'band_plan',
+           'pair_bands', 'PAIR_BUDGET', 'MAX_BOXES', 'SLOT_BLOCKS', 'LARGE_BLOCKS']
 
 # Pairs of one band at most (16 bytes each: 128 MiB), unless one row block
 # alone has more (B * 64 * (M / 64 - 1) pairs at most: 56 images of 16,384
 # boxes give 0.9 M). With diag, the next words, the offsets and their copy
-# (8 bytes per box each) and the flags (B * (M / 64)^2 bytes) this bounds the
-# sweep's scratch.
+# (8 bytes per box each) and the flags (B * (M / 64)^2 bytes, an eighth of
+# that in the large layout) this bounds the sweep's scratch; a band's pairs
+# are freed before the next band's are made.
 PAIR_BUDGET = 8 * 2 ** 20
-# Boxes per image at most, the JAX package's largest exact NMS
-# (ops/boxes.py:_PALLAS_NMS_MAX there): the bits' flags take B * (M / 64)^2
-# bytes, 16 MiB here, and the resolve's shared memory 200,704 bytes.
-MAX_BOXES = 4096 * BLOCK
+# Blocks per image at most in the byte flags and the resolve's first variant:
+# 262,144 boxes, the JAX package's largest exact NMS (ops/boxes.py:
+# _PALLAS_NMS_MAX there), 16 MiB of flags and 200,704 bytes of shared memory.
+LARGE_BLOCKS = 4096
+# Boxes per image at most: 2^20, the large layout's 32 MiB of flags and its
+# resolve's 200,704 bytes of shared memory (the removed bits take 128 KiB).
+MAX_BOXES = 16384 * BLOCK
 # Blocks per image at most for the slots layout: a block's 64 x 31 slots fit
 # one stage of the resolve's ring in shared memory (2,048 pairs,
 # csrc/nms_resolve.cu).
@@ -85,9 +93,9 @@ def _load(source: str, functions, defines=()) -> KernelLibrary:
 def bits_library() -> KernelLibrary:
     """Build (at first use) and load ``csrc/nms_bits.cu``."""
     return _load('nms_bits.cu', {
-        'cdt_nms_bits_count': [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+        'cdt_nms_bits_count': [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
         'cdt_nms_bits_fill': [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I,
-                              ctypes.c_longlong, _P]})
+                              ctypes.c_longlong, _I, _P]})
 
 
 @functools.cache
@@ -100,7 +108,7 @@ def resolve_library(trace: bool = False) -> KernelLibrary:
             ``scripts/torch_nms_resolve_steps.py``). The wrappers never use it.
     """
     functions = {
-        'cdt_nms_resolve': [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _P],
+        'cdt_nms_resolve': [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P],
         'cdt_empty_launch': [_P]}
     if trace:
         functions['cdt_nms_resolve_phases'] = [_P]
@@ -123,22 +131,24 @@ def _launch(built: KernelLibrary, name: str, device: torch.device, *args) -> Non
 
 
 def nms_bits_count(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
-                   packed: bool = True):
+                   packed: bool = True, large: bool = False):
     """Each box's column word in its own block and, for the packed layout,
     each row's number of non-zero later words, which block pairs hold one,
     and each row's word of the next block.
 
     Args:
         packed: ``False`` for the slots layout, which needs the column words only.
+        large: the flags as bits (:func:`large_layout`).
 
     Returns:
         ``(start [nb * B * 64 + 1] int64, diag [B, nb * 64] int64, flags
-        [B * nb * nb] uint8, nxt [B, nb * 64] int64)``; for slots all but
-        ``diag`` are ``None``. ``start[1 + q]`` is the count of block-major row
-        q, ``start[0] = 0``; see ``ops/boxes.py:_suppression_counts``.
+        [B * nb * nb] uint8 (large: [B * nb * ceil(nb / 32)] int32 bits),
+        nxt [B, nb * 64] int64)``; for slots all but ``diag`` are ``None``.
+        ``start[1 + q]`` is the count of block-major row q, ``start[0] = 0``;
+        see ``ops/boxes.py:_suppression_counts``.
     """
     if boxes.device.type == 'cpu':
-        start, diag, flags, nxt = _suppression_counts(boxes, valid, iou_threshold)
+        start, diag, flags, nxt = _suppression_counts(boxes, valid, iou_threshold, large)
         return (start, diag, flags, nxt) if packed else (None, diag, None, None)
     bsz, m = valid.shape
     nb = -(-m // BLOCK)
@@ -146,18 +156,19 @@ def nms_bits_count(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
     start = flags = nxt = None
     if packed:
         start = torch.empty(nb * bsz * BLOCK + 1, dtype=torch.int64, device=boxes.device)
-        flags = torch.empty(bsz * nb * nb, dtype=torch.uint8, device=boxes.device)
+        flags = (torch.empty(bsz * nb * -(-nb // 32), dtype=torch.int32, device=boxes.device)
+                 if large else torch.empty(bsz * nb * nb, dtype=torch.uint8, device=boxes.device))
         nxt = torch.empty(bsz, nb * BLOCK, dtype=torch.int64, device=boxes.device)
     _launch(bits_library(), 'cdt_nms_bits_count', boxes.device, boxes.data_ptr(),
             valid.data_ptr(), _ptr(start), diag.data_ptr(), _ptr(nxt), _ptr(flags), bsz, m,
-            float(iou_threshold))
+            float(iou_threshold), int(large))
     nms_bits_count.launches += 1
     return start, diag, flags, nxt
 
 
 def nms_bits_fill(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
                   r0: int, r1: int, flags: torch.Tensor, start: torch.Tensor, base: int,
-                  size: int) -> torch.Tensor:
+                  size: int, large: bool = False) -> torch.Tensor:
     """The non-zero later words of the rows in blocks ``[r0, r1)``.
 
     Args:
@@ -168,6 +179,7 @@ def nms_bits_fill(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
             ``None``: the slots layout, for all row blocks at once.
         size: room for the band's pairs, at least ``start[r1 * B * 64] - base``;
             in the slots layout ``B * 64 * nb * (nb - 1) / 2``.
+        large: as :func:`nms_bits_count`'s, which made ``flags``.
 
     Returns:
         ``[size, 2]`` int64 pairs ``(bits, row | word << 32)``; packed, row by
@@ -183,14 +195,14 @@ def nms_bits_fill(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
     pairs = torch.empty(size, 2, dtype=torch.int64, device=boxes.device)
     _launch(bits_library(), 'cdt_nms_bits_fill', boxes.device, boxes.data_ptr(),
             valid.data_ptr(), _ptr(flags), _ptr(cursor), pairs.data_ptr(), bsz, m,
-            float(iou_threshold), r0, r1, base)
+            float(iou_threshold), r0, r1, base, int(large))
     nms_bits_fill.launches += 1
     return pairs
 
 
 def nms_resolve(valid: torch.Tensor, diag: torch.Tensor, nxt: torch.Tensor,
                 pairs: torch.Tensor, start: torch.Tensor, base: int, removed: torch.Tensor,
-                keep: torch.Tensor, r0: int, r1: int) -> None:
+                keep: torch.Tensor, r0: int, r1: int, large: bool = False) -> None:
     """The greedy over row blocks ``[r0, r1)``; updates ``keep`` and ``removed`` in place.
 
     Args:
@@ -201,13 +213,14 @@ def nms_resolve(valid: torch.Tensor, diag: torch.Tensor, nxt: torch.Tensor,
             earlier bands; read only where ``r0 > 0``, then written. ``None``
             where this band is the only one.
         keep: ``[B, M]`` bool; the band's rows are written.
+        large: the variant for large images (:func:`large_layout`; packed).
     """
     if valid.device.type == 'cpu':
         return _resolve_blocks(valid, diag, pairs, removed, keep, r0, r1)
     bsz, m = valid.shape
     _launch(resolve_library(), 'cdt_nms_resolve', valid.device,
             diag.data_ptr(), _ptr(nxt), pairs.data_ptr(), _ptr(start), base, _ptr(removed),
-            keep.data_ptr(), bsz, m, r0, r1)
+            keep.data_ptr(), bsz, m, r0, r1, int(large))
     nms_resolve.launches += 1
 
 
@@ -242,6 +255,13 @@ def slots_layout(batch: int, m: int, pair_budget: int = PAIR_BUDGET) -> bool:
     return nb <= SLOT_BLOCKS and batch * BLOCK * nb * (nb - 1) // 2 <= pair_budget
 
 
+def large_layout(m: int) -> bool:
+    """Whether images of ``m`` boxes take the large layout: more than
+    ``LARGE_BLOCKS`` blocks (flags as bits; the resolve's variant with fewer
+    pairs staged a block)."""
+    return -(-m // BLOCK) > LARGE_BLOCKS
+
+
 def band_plan(start, batch: int, m: int, pair_budget: int = PAIR_BUDGET):
     """The bands of row blocks that :func:`bits_sweep` walks.
 
@@ -266,14 +286,20 @@ def band_plan(start, batch: int, m: int, pair_budget: int = PAIR_BUDGET):
 
 
 def bits_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
-               pair_budget: int = PAIR_BUDGET) -> torch.Tensor:
+               pair_budget: int = PAIR_BUDGET, large: bool = None) -> torch.Tensor:
     """The sweep of :func:`nms_sweep` through the three kernel wrappers.
 
     On CPU tensors it runs their plain versions, band by band as on the card.
+
+    Args:
+        large: the large layout; ``None``: :func:`large_layout` decides. It
+            is packed, so it takes no slots.
     """
     bsz, m = valid.shape
-    slots = slots_layout(bsz, m, pair_budget)
-    start, diag, flags, nxt = nms_bits_count(boxes, valid, iou_threshold, packed=not slots)
+    large = large_layout(m) if large is None else large
+    slots = not large and slots_layout(bsz, m, pair_budget)
+    start, diag, flags, nxt = nms_bits_count(boxes, valid, iou_threshold, packed=not slots,
+                                             large=large)
     if start is not None:
         start.cumsum_(0)                           # start[0] is 0: the rows' offsets
     bands = band_plan(start, bsz, m, pair_budget)
@@ -281,8 +307,10 @@ def bits_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
     removed = (torch.empty(bsz, -(-m // BLOCK), dtype=torch.int64, device=boxes.device)
                if len(bands) > 1 else None)
     for r0, r1, base, size in bands:
-        pairs = nms_bits_fill(boxes, valid, iou_threshold, r0, r1, flags, start, base, size)
-        nms_resolve(valid, diag, nxt, pairs, start, base, removed, keep, r0, r1)
+        pairs = nms_bits_fill(boxes, valid, iou_threshold, r0, r1, flags, start, base, size,
+                              large)
+        nms_resolve(valid, diag, nxt, pairs, start, base, removed, keep, r0, r1, large)
+        del pairs                                  # before the next band's are made
     return keep
 
 

@@ -2,10 +2,12 @@
 
 Counterpart of ``celldetection_tpu/models/cpn.py``: ``CPNCore`` (69-187),
 ``_gather_hw`` (194-211), ``local_refinement`` (214-253), ``cpn_decode``
-(256-356, inference branch), ``CPN`` (508-579) with ``forward_padded``
-(614-693, no targets, no loss), ``prepare_inputs`` (708-739), ``__call__``
-(741-783, here ``forward``) and ``detach`` (785-806), ``CpnU22`` (834-846),
-``CpnU12`` (880-884) and ``get_cpn``.
+(256-356, inference branch) and ``apply_detection_offsets`` (359-372),
+``CPN`` (508-579) with ``forward_padded`` (614-693, no targets, no loss),
+``prepare_inputs`` (708-739), ``__call__`` (741-783, here ``forward``, which
+sends inputs above ``max_imsize`` through
+:class:`..parallel.tiles.TiledInference`) and ``detach`` (785-806),
+``CpnU22`` (834-846), ``CpnU12`` (880-884) and ``get_cpn``.
 
 As in the JAX package every selection is capacity-padded: per image the top
 ``max_detections`` foreground pixels are carried through decode, refinement
@@ -27,8 +29,8 @@ from ..util.device import resolve_device
 from . import unet as unet_lib
 from .commons import FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
 
-__all__ = ['CPNCore', 'CPN', 'cpn_decode', 'local_refinement', 'get_cpn', 'models_by_name',
-           'CpnU22', 'CpnU12']
+__all__ = ['CPNCore', 'CPN', 'cpn_decode', 'apply_detection_offsets', 'local_refinement',
+           'get_cpn', 'models_by_name', 'CpnU22', 'CpnU12']
 
 
 class CPNCore(nn.Module):
@@ -144,8 +146,13 @@ def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops
 def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, order: int,
                samples: int, score_channels: int, score_thresh, max_detections: int,
                refinement_iterations: int, refinement_buckets: int,
-               scores_lower_bound=None, scores_upper_bound=None) -> Dict[str, torch.Tensor]:
+               scores_lower_bound=None, scores_upper_bound=None,
+               offsets: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Dense head outputs → capacity-padded detections (no NMS), inference branch.
+
+    Args:
+        offsets: Optional ``[B, 2]`` float32 xy offsets (tiles of a mosaic):
+            added after the clamping and the boxes, so clamping stays local.
 
     Returns ``contours [B,K,S,2], boxes [B,K,4], scores [B,K], classes [B,K],
     locations [B,K,2], fourier [B,K,order,4], contour_proposals,
@@ -196,10 +203,25 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
                                 c[..., 1].clamp(0, input_size[0] - 1)], -1) for c in all_refined]
     contours = all_refined[-1]
     boxes = torch.cat((contours.amin(-2), contours.amax(-2)), -1)
-    return dict(contours=contours, boxes=boxes, scores=sel_scores, classes=sel_classes,
-                locations=sel_locations, fourier=sel_fourier, contour_proposals=proposals,
-                all_refined=tuple(all_refined), box_uncertainties=None, valid=valid,
-                fg_index=top_idx, fg_count=fg_count, dense_scores=raw_scores)
+    out = dict(contours=contours, boxes=boxes, scores=sel_scores, classes=sel_classes,
+               locations=sel_locations, fourier=sel_fourier, contour_proposals=proposals,
+               all_refined=tuple(all_refined), box_uncertainties=None, valid=valid,
+               fg_index=top_idx, fg_count=fg_count, dense_scores=raw_scores)
+    if offsets is not None:
+        out = apply_detection_offsets(out, offsets)
+    return out
+
+
+def apply_detection_offsets(decoded: Dict[str, torch.Tensor], offsets: torch.Tensor) -> dict:
+    """Shift every coordinate-valued output by ``offsets [B, 2]`` (xy) to global coordinates."""
+    off = offsets.to(decoded['boxes'].dtype)[:, None]             # [B, 1, 2]
+    out = dict(decoded)
+    out['contours'] = decoded['contours'] + off[:, :, None]
+    out['contour_proposals'] = decoded['contour_proposals'] + off[:, :, None]
+    out['all_refined'] = tuple(c + off[:, :, None] for c in decoded['all_refined'])
+    out['boxes'] = decoded['boxes'] + torch.cat([off, off], -1)
+    out['locations'] = decoded['locations'] + off
+    return out
 
 
 class CPN(nn.Module):
@@ -215,8 +237,10 @@ class CPN(nn.Module):
         compute_dtype: e.g. ``torch.bfloat16``: the parameters (fp32) and the
             input are cast for the backbone and heads, and decoding runs in
             fp32, except the refinement field, which stays in that dtype.
-        max_imsize: Larger inputs belong to tiled inference, which is not
-            ported yet; they raise.
+        max_imsize: :meth:`forward` sends a single image whose height or
+            width exceeds it through :class:`..parallel.tiles.TiledInference`
+            (``tile_size``, ``tile_stride``), in global coordinates; ``None``
+            never tiles.
         device: Where the model lives; ``cuda`` by default (raises without a
             card), ``'cpu'`` on request.
     """
@@ -230,7 +254,8 @@ class CPN(nn.Module):
                  contour_head_stride: int = 1, refinement_head_channels: int = None,
                  refinement_head_stride: int = 1, refinement_interpolation: str = 'bilinear',
                  max_detections: int = 2048, compute_dtype: Optional[torch.dtype] = None,
-                 max_imsize: Optional[int] = 2048, device=None):
+                 max_imsize: Optional[int] = 2048, tile_size: int = 1024, tile_stride: int = 512,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         self.order = order
@@ -244,6 +269,8 @@ class CPN(nn.Module):
         self.max_detections = max_detections
         self.compute_dtype = compute_dtype
         self.max_imsize = max_imsize
+        self.tile_size = tile_size
+        self.tile_stride = tile_stride
         self.core = CPNCore(
             backbone, tuple(backbone.feature_channels), order, self.score_channels,
             refinement=refinement, refinement_margin=refinement_margin,
@@ -268,8 +295,16 @@ class CPN(nn.Module):
 
     @torch.no_grad()
     def forward_padded(self, inputs: torch.Tensor, *, score_thresh=None, nms: bool = True,
-                       scores_lower_bound=None, scores_upper_bound=None) -> dict:
-        """Fixed-shape forward of NHWC float input: dense heads → padded detections."""
+                       offsets: Optional[torch.Tensor] = None, scores_lower_bound=None,
+                       scores_upper_bound=None, max_detections: Optional[int] = None) -> dict:
+        """Fixed-shape forward of NHWC float input: dense heads → padded detections.
+
+        Args:
+            offsets: Optional ``[B, 2]`` xy offsets of the inputs in a mosaic
+                (see :func:`cpn_decode`).
+            max_detections: The capacity K of this call (the capacity retry
+                of tiled inference); the model's by default.
+        """
         score_thresh = self.score_thresh if score_thresh is None else score_thresh
         cdt = self.compute_dtype
         if cdt is None:
@@ -285,10 +320,11 @@ class CPN(nn.Module):
         decoded = cpn_decode(
             dense, tuple(inputs.shape[1:3]), order=self.order, samples=self.samples,
             score_channels=self.score_channels, score_thresh=score_thresh,
-            max_detections=self.max_detections,
+            max_detections=self.max_detections if max_detections is None else max_detections,
             refinement_iterations=self.refinement_iterations if self.refinement else 0,
             refinement_buckets=self.refinement_buckets,
-            scores_lower_bound=scores_lower_bound, scores_upper_bound=scores_upper_bound)
+            scores_lower_bound=scores_lower_bound, scores_upper_bound=scores_upper_bound,
+            offsets=offsets)
         if nms:
             keep = batched_box_nms(decoded['boxes'], decoded['scores'], decoded['valid'],
                                    self.nms_thresh)
@@ -322,12 +358,26 @@ class CPN(nn.Module):
 
     def forward(self, inputs, nms: bool = True, score_thresh=None, scores_lower_bound=None,
                 scores_upper_bound=None) -> dict:
-        """Per-image ragged results for a (batch of) image(s)."""
+        """Per-image ragged results for a (batch of) image(s).
+
+        A single image larger than ``max_imsize`` goes through tiled inference
+        (``nms`` and the score bounds do not apply there): the results are in
+        global coordinates, each key a list of one array as from
+        :meth:`detach`, beside ``num_tiles``, ``num_valid`` and
+        ``fg_overflow`` (one flag: any overflow of the tiled run).
+        """
         x = self.prepare_inputs(inputs)
         if self.max_imsize is not None and max(x.shape[1:3]) > self.max_imsize:
-            raise NotImplementedError(
-                f'input {tuple(x.shape[1:3])} exceeds max_imsize={self.max_imsize}: tiled '
-                f'inference is not ported yet (it comes with the tiling slice)')
+            from ..parallel.tiles import TiledInference
+            if x.shape[0] != 1:
+                raise ValueError(f'auto-tiled forward takes a single image, got {x.shape[0]}')
+            tiled = TiledInference(self, tile_size=self.tile_size, stride=self.tile_stride)
+            res = tiled(x[0].cpu().numpy(), score_thresh=score_thresh)
+            out = {k: ([v] if isinstance(v, np.ndarray) else v) for k, v in res.items()}
+            out['fg_overflow'] = out.pop('overflow')
+            out.setdefault('contour_proposals', None)
+            out.setdefault('box_uncertainties', None)
+            return out
         out = self.forward_padded(x, score_thresh=score_thresh, nms=nms,
                                   scores_lower_bound=scores_lower_bound,
                                   scores_upper_bound=scores_upper_bound)

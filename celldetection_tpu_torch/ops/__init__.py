@@ -1,9 +1,13 @@
-from .boxes import box_area, nms_padded
+from .boxes import (box_area, box_iou, filter_by_box_voting, get_iou_voting, nms_chunked,
+                    nms_indices, nms_padded, remove_small_boxes_mask)
 from .commons import equal_size, interpolate_nchw, process_scores, resize_bilinear, resize_nearest
-from .cpn import (batched_box_nms, fourier_basis, fouriers2contours, get_scale,
-                  rel_location2abs_location, scale_contours, scale_fourier)
+from .cpn import (batched_box_nms, filter_contours_by_stitching_rule, fourier_basis,
+                  fouriers2contours, get_scale, rel_location2abs_location, remove_border_contours,
+                  scale_contours, scale_fourier)
 
-__all__ = ['box_area', 'nms_padded', 'equal_size', 'interpolate_nchw', 'process_scores',
-           'resize_bilinear', 'resize_nearest', 'batched_box_nms', 'fourier_basis',
-           'fouriers2contours', 'get_scale', 'rel_location2abs_location', 'scale_contours',
-           'scale_fourier']
+__all__ = ['box_area', 'box_iou', 'nms_padded', 'nms_chunked', 'nms_indices',
+           'remove_small_boxes_mask', 'get_iou_voting', 'filter_by_box_voting', 'equal_size',
+           'interpolate_nchw', 'process_scores', 'resize_bilinear', 'resize_nearest',
+           'batched_box_nms', 'fourier_basis', 'fouriers2contours', 'get_scale',
+           'rel_location2abs_location', 'scale_contours', 'scale_fourier',
+           'remove_border_contours', 'filter_contours_by_stitching_rule']

@@ -1,23 +1,58 @@
 """Box math and exact greedy NMS (plain PyTorch).
 
 Counterpart of ``celldetection_tpu/ops/boxes.py``: ``box_area`` (79),
-``_suppression_matrix`` (95-109), ``nms_padded`` (147-191) and ``_nms_sweep``
-(216-250). ``_nms_sweep`` is the plain version of the whole sweep that the
-hand-written CUDA kernels of :mod:`..kernels.nms` do, and ``nms_padded`` on
-CPU tensors is the oracle they are held against. ``_suppression_counts``,
+``box_iou`` (83-92), ``_suppression_matrix`` (95-109),
+``remove_small_boxes_mask`` (140-144), ``nms_padded`` (147-191),
+``_nms_sweep`` (216-250), ``nms_chunked`` (253-347), ``nms_indices``
+(350-362), ``get_iou_voting`` and ``filter_by_box_voting`` (365-387).
+``_nms_sweep`` is the plain version of the whole sweep that the hand-written
+CUDA kernels of :mod:`..kernels.nms` do, and ``nms_padded`` on CPU tensors is
+the oracle they are held against. ``_suppression_counts``,
 ``_suppression_pairs`` and ``_resolve_blocks`` are the plain versions of the
 kernels one by one, with the same contracts.
 
-Unlike the JAX package there is no size gate: on a CUDA tensor the kernel
-runs for every N; on a CPU tensor the plain sweep runs.
+Unlike the JAX package ``nms_padded`` has no size gate: on a CUDA tensor the
+kernels run for every N up to ``kernels.nms.MAX_BOXES`` per image; on a CPU
+tensor the plain sweep runs. ``nms_chunked`` takes the branches that the JAX
+package takes on a TPU, on either device.
 """
+import time
+
 import torch
 
-__all__ = ['box_area', 'sort_by_score', 'nms_padded']
+__all__ = ['box_area', 'box_iou', 'sort_by_score', 'nms_padded', 'nms_chunked', 'nms_indices',
+           'remove_small_boxes_mask', 'get_iou_voting', 'filter_by_box_voting',
+           'EXACT_NMS_MIN', 'EXACT_NMS_MAX']
+
+# nms_chunked's exact branch: above its chunk, an image of EXACT_NMS_MIN to
+# EXACT_NMS_MAX boxes takes nms_padded whole, as the JAX package does on a TPU
+# (ops/boxes.py:_use_pallas_sweep there, _PALLAS_NMS_MIN and _PALLAS_NMS_MAX);
+# larger ones take the chunked approximation. A test may lower them.
+EXACT_NMS_MIN = 2048
+EXACT_NMS_MAX = 262_144
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Full IoU matrix ``[n, m]`` of two box sets (0 where the union is not positive)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
+    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[:, None] + area2[None, :] - inter
+    return torch.where(union > 0, inter / union, 0.)
+
+
+def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
+    """Bool mask of boxes with both sides >= ``min_size``."""
+    ws = boxes[..., 2] - boxes[..., 0]
+    hs = boxes[..., 3] - boxes[..., 1]
+    return (ws >= min_size) & (hs >= min_size)
 
 
 def _suppression_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor, thresh: float) -> torch.Tensor:
@@ -116,8 +151,18 @@ def _later_words(b: torch.Tensor, v: torch.Tensor, thresh: float, r0: int, r1: i
             yield i, j[::BLOCK] // BLOCK, _pack_words(sup)
 
 
-def _suppression_counts(b: torch.Tensor, v: torch.Tensor, thresh: float):
+def _flag_bits(flags: torch.Tensor) -> torch.Tensor:
+    """``[..., nb]`` bool to ``[..., ceil(nb / 32)]`` int32 words, bit c % 32 of word c / 32."""
+    f = torch.nn.functional.pad(flags, (0, (-flags.shape[-1]) % 32)).unflatten(-1, (-1, 32))
+    w = (f.long() << torch.arange(32, device=flags.device)).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)   # bit 31 is the sign bit
+
+
+def _suppression_counts(b: torch.Tensor, v: torch.Tensor, thresh: float, large: bool = False):
     """Plain version of ``csrc/nms_bits.cu``'s count kernel.
+
+    Args:
+        large: the flags as bits, as the kernel writes them for large images.
 
     Returns:
         ``(start, diag, flags, nxt)``: ``start [nb * B * 64 + 1]`` int64 holds
@@ -127,7 +172,8 @@ def _suppression_counts(b: torch.Tensor, v: torch.Tensor, thresh: float):
         its own bit: it is valid; 0 past M); ``nxt [B, nb * 64]`` int64 each
         row's word of the next block (0 in the last block and past M);
         ``flags [B * nb * nb]`` uint8 is 1 where row block r has a non-zero
-        word in column block c > r.
+        word in column block c > r (large: bit c % 32 of int32 word
+        ``(b * nb + r) * ceil(nb / 32) + c / 32``).
     """
     bsz, m = v.shape
     nb = -(-m // BLOCK)
@@ -150,7 +196,8 @@ def _suppression_counts(b: torch.Tensor, v: torch.Tensor, thresh: float):
     sup &= torch.ones(BLOCK, BLOCK, dtype=torch.bool, device=b.device).triu(1)
     sup |= torch.eye(BLOCK, dtype=torch.bool, device=b.device) & vp[..., :, None]  # own bit: valid
     diag = _pack_words(sup.transpose(-1, -2)).flatten(1)            # [B, nb * 64]
-    return start, diag, flags.flatten().to(torch.uint8), nxt
+    flags = _flag_bits(flags) if large else flags.to(torch.uint8)
+    return start, diag, flags.flatten(), nxt
 
 
 def _suppression_pairs(b: torch.Tensor, v: torch.Tensor, thresh: float, r0: int, r1: int):
@@ -224,7 +271,7 @@ def sort_by_score(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-               iou_threshold: float) -> torch.Tensor:
+               iou_threshold: float, sweep=None) -> torch.Tensor:
     """Exact greedy NMS on capacity-padded boxes.
 
     Boxes are visited in descending score order (stable: the lower index
@@ -235,17 +282,151 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         boxes: ``[N, 4]`` or ``[B, N, 4]`` (x0, y0, x1, y1).
         scores: ``[N]`` or ``[B, N]``.
         valid: ``[N]`` or ``[B, N]`` bool; padded entries False.
+        sweep: The sweep over score-sorted boxes: ``kernels.nms.nms_sweep``
+            (the kernels on a CUDA tensor) by default; ``_nms_sweep`` is its
+            plain version on any device, which checks on the card pass.
 
     Returns:
         Bool keep mask of ``valid``'s shape in the original box order. On a
-        CUDA tensor all images go through one launch of the CUDA sweep.
+        CUDA tensor all images go through one call of the CUDA sweep.
     """
     from ..kernels.nms import nms_sweep
 
     if boxes.dim() == 2:
-        return nms_padded(boxes[None], scores[None], valid[None], iou_threshold)[0]
+        return nms_padded(boxes[None], scores[None], valid[None], iou_threshold, sweep)[0]
     if valid.shape[1] == 0:
         return valid.clone()
     order, b, v = sort_by_score(boxes, scores, valid)
-    keep_sorted = nms_sweep(b, v, iou_threshold)
+    keep_sorted = (sweep or nms_sweep)(b, v, iou_threshold)
     return torch.zeros_like(valid).scatter_(1, order, keep_sorted) & valid
+
+
+def _traced(trace, name: str, shape, device, fn):
+    """``fn()``; where ``trace`` is a list, also append the pass's host time
+    (ended by a device synchronisation), its ``B x M`` and its kernel launches."""
+    if trace is None:
+        return fn()
+    from ..kernels import KERNELS
+
+    def sync():
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+
+    sync()
+    before = sum(k.launches for k in KERNELS)
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    trace.append(dict(name=name, batch=int(shape[0]), m=int(shape[1]),
+                      ms=(time.perf_counter() - t0) * 1e3,
+                      launches=sum(k.launches for k in KERNELS) - before))
+    return out
+
+
+def nms_chunked(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                iou_threshold: float, chunk: int = 16384, tile: int = 256,
+                survivors_cap: int = None, return_overflow: bool = False, trace: list = None,
+                sweep=None):
+    """Greedy NMS for very large N (the cross-tile stitch), with the JAX package's branches on a TPU.
+
+    * ``n <= chunk``: :func:`nms_padded`;
+    * ``EXACT_NMS_MIN <= n <= EXACT_NMS_MAX``: :func:`nms_padded`, exact;
+    * above: sort all boxes by score (stable, descending), cut them into
+      score-contiguous chunks of ``chunk`` rows (rounded up to ``tile``, as
+      the JAX package rounds it), sweep every chunk exactly in one batched
+      :func:`..kernels.nms.nms_sweep`, then sweep the chunks' survivors, in
+      score order, across the chunk borders. A box suppressed inside its
+      chunk is not rescued when its suppressor loses the final pass: the
+      approximation the JAX package makes.
+
+    The cross-chunk pass holds ``survivors_cap`` rows (default ``4 * chunk``,
+    at most ``n``, rounded up to ``tile``). It sweeps only the survivors: their
+    count is read on the host once and the first ``min(count, cap)`` rows of
+    the survivor order are swept; the rows past the count, which the JAX
+    package carries as invalid, neither suppress nor are kept, so the keep
+    set is the same.
+
+    Args:
+        boxes / scores / valid: ``[N, 4]``, ``[N]``, ``[N]`` bool.
+        return_overflow: Also return whether more than ``cap`` boxes survived
+            their chunks (the lowest-scored survivors were dropped).
+        trace: a list to which each NMS pass appends its name, ``B x M``,
+            host ms (synchronised) and kernel launches, and the chunked
+            branch its survivor count.
+        sweep: as :func:`nms_padded`'s, for every pass.
+
+    Returns:
+        Bool keep mask ``[N]`` in the original order (and the overflow flag,
+        a Python bool).
+    """
+    n = boxes.shape[0]
+    if n <= chunk or EXACT_NMS_MIN <= n <= EXACT_NMS_MAX:
+        keep = _traced(trace, 'exact', (1, n), boxes.device,
+                       lambda: nms_padded(boxes, scores, valid, iou_threshold, sweep))
+        return (keep, False) if return_overflow else keep
+    if sweep is None:
+        from ..kernels.nms import nms_sweep as sweep
+
+    chunk += (-chunk) % tile
+    cap = min(survivors_cap or 4 * chunk, n)
+    cap += (-cap) % tile
+    s = torch.where(valid, scores, -torch.inf)
+    order = torch.sort(s, descending=True, stable=True).indices
+    order_p = torch.cat([order, order.new_zeros((-n) % chunk)])
+    b, sp, v = boxes[order_p], s[order_p], valid[order_p]
+    v[n:] = False
+    num_chunks = len(order_p) // chunk
+    keep = _traced(trace, 'per-chunk', (num_chunks, chunk), boxes.device,
+                   lambda: sweep(b.view(num_chunks, chunk, 4), v.view(num_chunks, chunk),
+                                 iou_threshold).reshape(-1))
+    count = int(keep.sum())
+    if trace is not None:
+        trace.append(dict(name='survivors', count=count, cap=cap))
+    m = min(count, cap)
+    surv = torch.sort(torch.where(keep, sp, -torch.inf), descending=True,
+                      stable=True).indices[:m]
+    skeep = _traced(trace, 'cross-chunk', (1, m), boxes.device,
+                    lambda: sweep(b[surv][None], keep[surv][None], iou_threshold)[0])
+    out = torch.zeros_like(valid)
+    out[order_p[surv]] = skeep
+    out &= valid
+    return (out, count > cap) if return_overflow else out
+
+
+def nms_indices(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                iou_threshold: float):
+    """NMS returning score-sorted keep indices (padded) and their validity.
+
+    Returns:
+        ``(indices, keep_valid)``, both ``[N]``: positions in the input sorted
+        by descending score of the kept boxes (stable), and which are kept.
+    """
+    keep = nms_padded(boxes, scores, valid, iou_threshold)
+    order = torch.sort(torch.where(keep, scores, -torch.inf), descending=True,
+                       stable=True).indices
+    return order, keep[order]
+
+
+def get_iou_voting(boxes: torch.Tensor, thresh: float, valid: torch.Tensor = None) -> torch.Tensor:
+    """Sum of IoUs > thresh against all (valid) boxes, including self."""
+    iou = box_iou(boxes, boxes)
+    iou = iou * (iou > thresh)
+    if valid is not None:
+        iou = iou * valid[None, :]
+    return iou.sum(-1)
+
+
+def filter_by_box_voting(boxes: torch.Tensor, thresh: float, min_vote: float,
+                         valid: torch.Tensor = None, return_votes: bool = False):
+    """Keep mask of boxes whose IoU-vote sum reaches ``min_vote``.
+
+    A box votes for itself (vote 1.0) and every box overlapping it with
+    IoU > ``thresh`` adds its IoU to the vote.
+    """
+    votes = get_iou_voting(boxes, thresh, valid)
+    mask = votes >= min_vote
+    if valid is not None:
+        mask = mask & valid
+    if return_votes:
+        return mask, votes
+    return mask

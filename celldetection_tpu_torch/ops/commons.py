@@ -16,11 +16,10 @@ def interpolate_nchw(x: torch.Tensor, size, mode: str = 'bilinear') -> torch.Ten
 
     ``'nearest'`` is torch's floor-of-scaled-index rule, as in the JAX
     package. ``'bilinear'`` uses half-pixel centres (``align_corners=False``),
-    which equals ``jax.image.resize(method='linear')`` on an upscale. On a
-    downscale JAX antialiases and ``F.interpolate`` does not, so a downscale
-    raises instead of silently differing. No downscale happens on the
-    single-tile CPN path: ``equal_size`` and the decoder's final resize are
-    no-ops at the U-Net's strides.
+    which equals ``jax.image.resize(method='linear')`` on an upscale; on a
+    downscale (the score bounds of masked tiled inference, resized to the
+    score map) JAX widens the triangle kernel by the scale, as
+    ``F.interpolate(antialias=True)`` does (equal to 1 ulp on 0/1 masks).
     """
     size = tuple(int(s) for s in size)
     if tuple(x.shape[2:]) == size:
@@ -29,15 +28,12 @@ def interpolate_nchw(x: torch.Tensor, size, mode: str = 'bilinear') -> torch.Ten
         return F.interpolate(x, size=size, mode='nearest')
     if mode != 'bilinear':
         raise ValueError(f'Unknown interpolation mode: {mode}')
-    if any(d < s for d, s in zip(size, x.shape[2:])):
-        raise NotImplementedError(
-            f'bilinear downscale {tuple(x.shape[2:])} -> {size}: JAX antialiases '
-            f'here and this port does not yet')
-    return F.interpolate(x, size=size, mode='bilinear', align_corners=False)
+    down = any(d < s for d, s in zip(size, x.shape[2:]))
+    return F.interpolate(x, size=size, mode='bilinear', align_corners=False, antialias=down)
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """Bilinear NHWC resize matching torch ``align_corners=False`` (upscale only)."""
+    """Bilinear NHWC resize matching torch ``align_corners=False``, antialiased on a downscale."""
     return interpolate_nchw(x.permute(0, 3, 1, 2), size, 'bilinear').permute(0, 2, 3, 1)
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``celldetection_tpu/ops/cpn.py``: ``rel_location2abs_location``
 (35-60), ``fourier_basis`` and ``fouriers2contours`` (63-109), ``get_scale``,
-``scale_contours`` and ``scale_fourier`` (112-136), ``batched_box_nms``
+``scale_contours`` and ``scale_fourier`` (112-136), ``remove_border_contours``
+and ``filter_contours_by_stitching_rule`` (167-226), ``batched_box_nms``
 (229-237).
 """
 import math
@@ -13,7 +14,8 @@ import torch
 from .boxes import nms_padded
 
 __all__ = ['rel_location2abs_location', 'fourier_basis', 'fouriers2contours', 'get_scale',
-           'scale_contours', 'scale_fourier', 'batched_box_nms']
+           'scale_contours', 'scale_fourier', 'remove_border_contours',
+           'filter_contours_by_stitching_rule', 'batched_box_nms']
 
 
 def rel_location2abs_location(locations: torch.Tensor, channels_last: bool = None) -> torch.Tensor:
@@ -98,6 +100,47 @@ def scale_fourier(actual_size, original_size, fourier: torch.Tensor, location: t
     scale = get_scale(actual_size, original_size, dtype=fourier.dtype, device=fourier.device)
     coef_scale = torch.repeat_interleave(scale, 2, -1)   # (sx, sx, sy, sy)
     return fourier * coef_scale, location * scale
+
+
+def remove_border_contours(contours: torch.Tensor, size, padding: float = 1, top: bool = True,
+                           right: bool = True, bottom: bool = True, left: bool = True,
+                           offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Keep mask of ``[N, S, 2]`` (x, y) contours that do NOT touch the chosen
+    border regions of a context of ``size`` (h, w), ``padding`` px thick;
+    ``offsets`` (xy) are added to the contours first."""
+    h, w = size[0], size[1]
+    if offsets is not None:
+        contours = contours + offsets
+    x, y = contours[..., 0], contours[..., 1]
+    keep = torch.ones(contours.shape[:-2], dtype=torch.bool, device=contours.device)
+    if top:
+        keep = keep & (y > padding).all(-1)
+    if right:
+        keep = keep & (x < (w - padding)).all(-1)
+    if bottom:
+        keep = keep & (y < (h - padding)).all(-1)
+    if left:
+        keep = keep & (x > padding).all(-1)
+    return keep
+
+
+def filter_contours_by_stitching_rule(contours: torch.Tensor, tile_size, overlaps,
+                                      rule: str = 'ex_br',
+                                      offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy stitching-rule keep mask for tiled inference.
+
+    ``'ex_br'`` drops contours that lie wholly in the exclusive bottom or
+    right overlap region, from ``tile_size - overlaps[:, 1]`` on (local
+    coordinates); ``overlaps`` is ``[2, 2]``, (start, end) per axis (y, x).
+    """
+    if offsets is not None:
+        contours = contours + offsets
+    if 'ex_br' not in rule.split(','):
+        raise ValueError(f'Unknown stitching rule: {rule}')
+    tile_size = torch.as_tensor(tile_size, dtype=contours.dtype, device=contours.device)
+    overlaps = torch.as_tensor(overlaps, dtype=contours.dtype, device=contours.device)
+    stop = torch.flip(tile_size - overlaps[:, 1], (0,))          # (x, y)
+    return ~(contours >= stop).any(-1).all(-1)
 
 
 def batched_box_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,

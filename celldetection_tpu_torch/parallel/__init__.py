@@ -1,0 +1,5 @@
+from .tiles import (TiledInference, compact_detections, stitch_detections, stitch_flat,
+                    tile_image, tta_inference)
+
+__all__ = ['TiledInference', 'tile_image', 'stitch_detections', 'stitch_flat',
+           'compact_detections', 'tta_inference']

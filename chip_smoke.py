@@ -14,10 +14,11 @@ Phases, in order; any failure exits non-zero:
   3. every NMS kernel against its plain PyTorch version on the card, bit for
      bit, and the whole sweep against ``_nms_sweep``: batched, large, ragged,
      tiny, all-invalid and knife-edge inputs, and at stitch scale (56 images
-     of 16,384 boxes, one image of 262,144). At the main path's and the
-     stitch's shapes it times the sweep per call (CUDA events) and each
-     kernel on the device (profiler), beside the bound, the plain version,
-     the launches per call, the peak scratch and the launch floor;
+     of 16,384 boxes, one image of 262,144, and one of 262,145, the smallest
+     that takes the large layout). At the main path's and the stitch's
+     shapes it times the sweep per call (CUDA events) and each kernel on the
+     device (profiler), beside the bound, the plain version, the launches
+     per call, the peak scratch and the launch floor;
   4. full-width CpnU22 at 256^2 on the card against the same model on the
      CPU, TF32 off;
   5. the main path, ``CPN.forward_padded`` of full-width CpnU22 (backbone,
@@ -25,7 +26,21 @@ Phases, in order; any failure exits non-zero:
      and bf16 at batch 4: throughput, a profile of one step (top kernels and
      the slowest convolutions by input shape), peak memory, detections before
      and after NMS, the kernel launches of that run, and the NMS kernels
-     held against their plain versions and timed on that run's boxes.
+     held against their plain versions and timed on that run's boxes;
+  6. tiled inference (``TiledInference``) of full-width CpnU22, fp32 with
+     TF32 off, on a 640^2 mosaic in 256^2 tiles at stride 192: the card
+     against the CPU (tiles, detections, contours);
+  7. the gigapixel path, ``TiledInference`` of full-width CpnU22 with spread
+     heads on blob mosaics (tile 1024, stride 768, ``max_outputs`` 400,000,
+     as ``scripts/bench_gigapixel.py``): 8192^2 (121 tiles, the stitch's
+     exact NMS over 247,808 rows) in bf16 at batch 4 and fp32 at batch 1,
+     and 16,384^2 (441 tiles, the chunked NMS and its 'full' survivor pass)
+     in bf16 at batch 4: tiles/s with the stitch and the readback, ms by
+     stage and by NMS pass, survivors, detections, overflow, peak memory and
+     the kernel launches of those runs; ``model(image)`` on a 2560^2 image
+     (above ``max_imsize``) against ``TiledInference``; then the stitch's
+     NMS on the same candidates against its plain version on the card, and
+     each NMS pass of the stitch timed alone beside its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -43,11 +58,13 @@ import torch
 import celldetection_tpu_torch as ct
 from celldetection_tpu_torch import kernels, models
 from celldetection_tpu_torch.kernels import nms_bits_count, nms_bits_fill, nms_resolve
-from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, nms_sweep,
-                                                 resolve_library, slots_layout)
+from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, large_layout,
+                                                 nms_sweep, resolve_library, slots_layout)
 from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks,
                                                _suppression_counts, _suppression_matrix,
-                                               _suppression_pairs, nms_padded, sort_by_score)
+                                               _suppression_pairs, box_iou, nms_chunked,
+                                               nms_padded, sort_by_score)
+from celldetection_tpu_torch.parallel.tiles import TiledInference, tile_image
 from celldetection_tpu_torch.util.weights import init_jax_variables, state_dict_from_jax
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -64,9 +81,9 @@ PAIR_TEST_OPS = 14
 # the bits kernels' exact early-out): 4 compares.
 APART_OPS = 4
 SCRATCH_LIMIT = 256 * 2 ** 20   # bytes the NMS sweep may allocate at any phase-3 shape
-# profiler names of the kernels' device functions
-DEVICE_NAMES = (('nms_bits_kernel<false>', 'nms_bits_count'),
-                ('nms_bits_kernel<true>', 'nms_bits_fill'),
+# profiler names of the kernels' device functions (each in its two layouts' builds)
+DEVICE_NAMES = (('nms_bits_kernel<false,', 'nms_bits_count'),
+                ('nms_bits_kernel<true,', 'nms_bits_fill'),
                 ('nms_resolve_kernel', 'nms_resolve'))
 SOURCES = {'nms_bits_count': 'nms_bits.cu', 'nms_bits_fill': 'nms_bits.cu',
            'nms_resolve': 'nms_resolve.cu'}
@@ -128,26 +145,26 @@ def nms_bound(b, v, keep, thresh):
 
     Bytes: each box and valid flag read once, the keep mask written once.
     Operations: the pair tests this data needs: a kept box is tested against
-    every kept box before it, a suppressed one up to its first kept suppressor.
-    Only kept rows are tested, in column chunks, so the temporaries stay small.
+    every kept box before it (k kept boxes: k (k - 1) / 2 tests), a suppressed
+    one up to its first kept suppressor. Only the suppressed columns are
+    tested against the kept rows, in chunks, so the temporaries stay small.
     """
     bsz, n = v.shape
     nbytes = bsz * n * (16 + 1 + 1)
     tests = 0
     for i in range(bsz):
-        k = keep[i]
-        kept = k.nonzero()[:, 0]                        # kept rows, in order
+        kept = keep[i].nonzero()[:, 0]                  # kept rows, in order
         if not len(kept):
             continue
-        ranks = torch.cumsum(k.long(), 0)               # 1-based place among kept rows
+        tests += len(kept) * (len(kept) - 1) // 2
+        gone = (v[i] & ~keep[i]).nonzero()[:, 0]        # valid and suppressed
         step = max(BLOCK, 2 ** 26 // len(kept))
-        for c0 in range(0, n, step):
-            c1 = min(n, c0 + step)
-            sup = _suppression_matrix(b[i, kept], b[i, c0:c1], thresh)
-            sup &= kept[:, None] < torch.arange(c0, c1, device=b.device)
+        for c0 in range(0, len(gone), step):
+            cols = gone[c0:c0 + step]
+            sup = _suppression_matrix(b[i, kept], b[i, cols], thresh)
+            sup &= kept[:, None] < cols[None, :]
             first = sup.to(torch.uint8).argmax(0)       # place of the first kept suppressor
-            need = torch.where(k[c0:c1], ranks[c0:c1] - 1, torch.where(sup.any(0), first + 1, 0))
-            tests += int(need[v[i, c0:c1]].sum())
+            tests += int(torch.where(sup.any(0), first + 1, 0).sum())
     ops = tests * PAIR_TEST_OPS
     return bound_of(nbytes, ops) + (tests,)
 
@@ -240,9 +257,10 @@ def hold_each(b, v, thresh, errs):
     bands."""
     bsz, m = v.shape
     nb = -(-m // BLOCK)
-    slots = slots_layout(bsz, m)
-    want = _suppression_counts(b, v, thresh)
-    start, diag, flags, nxt = nms_bits_count(b, v, thresh, packed=not slots)
+    large = large_layout(m)
+    slots = not large and slots_layout(bsz, m)
+    want = _suppression_counts(b, v, thresh, large)
+    start, diag, flags, nxt = nms_bits_count(b, v, thresh, packed=not slots, large=large)
     found = {'nms_bits_count': max(max_err(got, w) for got, w in
                                    zip((start, diag, flags, nxt), want) if got is not None)}
     if not slots:
@@ -253,8 +271,8 @@ def hold_each(b, v, thresh, errs):
                              for _ in range(2))
     keep, want_keep = torch.zeros_like(v), torch.zeros_like(v)
     for r0, r1, base, size in bands:
-        pairs = nms_bits_fill(b, v, thresh, r0, r1, flags, start, base, size)
-        nms_resolve(v, diag, nxt, pairs, start, base, removed, keep, r0, r1)
+        pairs = nms_bits_fill(b, v, thresh, r0, r1, flags, start, base, size, large)
+        nms_resolve(v, diag, nxt, pairs, start, base, removed, keep, r0, r1, large)
         # slots: the zero slots are no pairs; packed: the room past the band's pairs is unwritten
         pairs = (pairs[pairs[:, 0] != 0] if slots
                  else pairs[:int(offsets[r1 * bsz * BLOCK]) - base])
@@ -404,8 +422,10 @@ def phase_kernels(rng, card, errs):
     cases.append(('B=1 N=2048 t=0.5', crowded_boxes(stitch, 1, 2048, 200.), 0.5))
     cases.append(('B=56 N=16384 t=0.5', crowded_boxes(stitch, 56, 16384, 800.), 0.5))
     cases.append(('B=1 N=262144 t=0.5', crowded_boxes(stitch, 1, 262144, 3200.), 0.5))
+    # the smallest image of the large layout (bit flags, the resolve's variant)
+    cases.append(('B=1 N=262145 t=0.5', crowded_boxes(stitch, 1, 262145, 3200.), 0.5))
     timed = ('B=4 N=2048 t=0.2', 'B=1 N=2048 t=0.5', 'B=1 N=16384 t=0.5', 'B=56 N=16384 t=0.5',
-             'B=1 N=262144 t=0.5')
+             'B=1 N=262144 t=0.5', 'B=1 N=262145 t=0.5')
     for label, arrays, t in cases:
         boxes, scores, valid = to_dev(arrays, 'cuda')
         _, b, v = sort_by_score(boxes, scores, valid)
@@ -418,8 +438,9 @@ def phase_kernels(rng, card, errs):
         end_ev.synchronize()
         plain_ms = start_ev.elapsed_time(end_ev)            # the first call, warm from hold_each
         check(torch.equal(k, p) and torch.equal(keep, p), f'{label}: the sweep and plain differ')
+        layout = 'slots' if slots else 'large' if large_layout(v.shape[1]) else 'packed'
         line = (f'  {label}: kept {int(k.sum())} of {int(v.sum())} valid, {int(start[-1])} pairs '
-                f'in {len(bands)} band(s), {"slots" if slots else "packed"} layout; '
+                f'in {len(bands)} band(s), {layout} layout; '
                 f'each kernel == plain, sweep == _nms_sweep')
         if v.shape[1] <= 16384 and v.shape[0] <= 4:  # the CPU's plain sweep takes minutes above
             end_to_end = nms_padded(boxes, scores, valid, t).cpu()
@@ -591,6 +612,253 @@ def main_path(rng, card, errs, floor):
     return launches, kernel_rec
 
 
+def blob_mosaic(side, block=TILE, num=160, seed=SEED):
+    """A blob mosaic in numpy alone, as ``scripts/bench_gigapixel.py:build_mosaic``
+    builds one: a block of ``num`` disks of radius 8-22 px (intensity 0.4-0.9
+    over a faint noise floor), repeated with an intensity jitter per block
+    so that tiles are not bit-equal. ``side`` is a multiple of ``block``."""
+    rng = np.random.RandomState(seed)
+    base = (rng.rand(block, block) * 0.03).astype(np.float32)
+    for _ in range(num):
+        r = rng.randint(8, 22)
+        cx, cy = rng.randint(r + 1, block - r - 1, 2)
+        yy, xx = np.ogrid[-r:r + 1, -r:r + 1]
+        disk = xx * xx + yy * yy <= r * r
+        win = base[cy - r:cy + r + 1, cx - r:cx + r + 1]
+        win[disk] = np.maximum(win[disk], np.float32(0.4 + 0.5 * rng.rand()))
+    reps = side // block
+    mosaic = np.empty((side, side), np.float32)
+    for by in range(reps):
+        for bx in range(reps):
+            mosaic[by * block:(by + 1) * block, bx * block:(bx + 1) * block] = \
+                base * np.float32(0.9 + 0.01 * ((by * reps + bx) % 10))
+    return mosaic
+
+
+def match_detections(a, b):
+    """One-to-one match of two tiled results' detections by box IoU above 0.99,
+    or None; returns, for each detection of ``a``, its index in ``b``."""
+    if len(a['boxes']) != len(b['boxes']) or not len(a['boxes']):
+        return None
+    iou = box_iou(torch.from_numpy(a['boxes']), torch.from_numpy(b['boxes']))
+    best, match = iou.max(1)
+    if sorted(match.tolist()) != list(range(len(match))) or not bool((best > 0.99).all()):
+        return None
+    return match.numpy()
+
+
+def phase_tiled_card_vs_cpu(rng):
+    """Phase 6: TiledInference of full-width CpnU22 (fp32, TF32 off) on a 640^2
+    mosaic in 256^2 tiles at stride 192, the card against the CPU."""
+    print('== phase 6: tiled inference, CpnU22 (full width, fp32, TF32 off), 640^2 mosaic in '
+          '256^2 tiles at stride 192, card vs CPU', flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_m = models.CpnU22(in_channels=3, device='cpu')
+    sd = state_dict_from_jax(init_jax_variables(cpu_m, SEED))    # phase 4's weights
+    cpu_m.load_state_dict(sd, strict=True)
+    gpu_m = models.CpnU22(in_channels=3)
+    gpu_m.load_state_dict(sd, strict=True)
+    image = rng.rand(640, 640, 3).astype(np.float32)
+    tiles = torch.from_numpy(tile_image(image, 256, 192)[0])
+    with torch.no_grad():
+        p_cpu = torch.sigmoid(cpu_m.core(tiles)['scores'])
+        p_err = float((torch.sigmoid(gpu_m.core(tiles.cuda())['scores']).cpu() - p_cpu).abs().max())
+    thresh, gap = threshold_in_gap(p_cpu.numpy(), 9 * 300, 9 * 1500)
+    check(gap > 4 * p_err, f'score gap {gap} too narrow for the card-cpu difference {p_err}')
+    kw = dict(tile_size=256, stride=192, batch_size=3)
+    t0 = time.perf_counter()
+    res_c = TiledInference(cpu_m, **kw)(image, score_thresh=thresh)
+    t1 = time.perf_counter()
+    tiled_g = TiledInference(gpu_m, **kw)
+    res_g = tiled_g(image, score_thresh=thresh)
+    print(f'  threshold {thresh:.6f} (gap {gap:.2e}, score diff {p_err:.2e}); CPU run '
+          f'{t1 - t0:.1f} s; tiles {res_c["num_tiles"]} / {res_g["num_tiles"]}, kept '
+          f'{res_c["num_valid"]} / {res_g["num_valid"]} (cpu / card), overflow '
+          f'{res_c["overflow"]} / {res_g["overflow"]}; card NMS passes '
+          f'{[(p["name"], p.get("batch"), p.get("m")) for p in tiled_g.stats["nms"]]}', flush=True)
+    for key in ('num_tiles', 'num_valid', 'overflow'):
+        check(res_c[key] == res_g[key], f'tiled {key} differs: {res_c[key]} and {res_g[key]}')
+    check(res_g['num_tiles'] == 9 and res_g['num_valid'] > 0, 'tiled run: tiles or detections')
+    match = match_detections(res_c, res_g)
+    check(match is not None, 'the kept detections of the card and the CPU differ')
+    diffs = np.abs(res_g['contours'][match] - res_c['contours'])
+    frac = float((diffs <= 1e-3).all(-1).mean())
+    print(f'  same keep set; contours: {100 * frac:.2f}% of points within 1e-3 px, mean |diff| '
+          f'{float(diffs.mean()):.2e} px, max {float(diffs.max()):.3f} px', flush=True)
+    check(frac >= 0.99 and float(diffs.mean()) < 0.1, 'tiled contours differ beyond the gates')
+
+
+def chunked_passes(boxes, scores, valid, thresh, chunk, tile, cap):
+    """The inputs of ``ops/boxes.py: nms_chunked``'s two sweeps (its chunked
+    branch, the same steps), to time and bound each pass alone: ``(b, v,
+    keep)`` of the per-chunk pass ``[chunks, chunk]`` and of the cross-chunk
+    pass ``[1, M]``."""
+    n = len(boxes)
+    chunk += (-chunk) % tile
+    cap = min(cap or 4 * chunk, n)
+    cap += (-cap) % tile
+    s = torch.where(valid, scores, -torch.inf)
+    order = torch.sort(s, descending=True, stable=True).indices
+    order_p = torch.cat([order, order.new_zeros((-n) % chunk)])
+    b, sp, v = boxes[order_p], s[order_p], valid[order_p]
+    v[n:] = False
+    bc, vc = b.view(-1, chunk, 4), v.view(-1, chunk)
+    keep = nms_sweep(bc, vc, thresh)
+    flat_keep = keep.reshape(-1)
+    m = min(int(flat_keep.sum()), cap)
+    surv = torch.sort(torch.where(flat_keep, sp, -torch.inf), descending=True,
+                      stable=True).indices[:m]
+    bs, vs = b[surv][None], flat_keep[surv][None]
+    return (bc, vc, keep), (bs, vs, nms_sweep(bs, vs, thresh))
+
+
+def stage_line(card, label, res, stats, seconds, peak):
+    nms_ms = sum(p['ms'] for p in stats['nms'] if 'ms' in p)
+    passes = '; '.join(f'{p["name"]} {p["batch"]} x {p["m"]}: {p["ms"]:.3f} ms, '
+                       f'{p["launches"]} launches' for p in stats['nms'] if 'ms' in p)
+    surv = ', '.join(f'{p["count"]} (cap {p["cap"]})' for p in stats['nms'] if 'count' in p)
+    print(f'  [{card}] {label}: {res["num_tiles"]} tiles in {seconds:.3f} s = '
+          f'{res["num_tiles"] / seconds:.3f} tiles/s (host clock, tiling, forwards, stitch and '
+          f'readback); forwards {stats["forward_ms"]:.1f} ms, capacity retries '
+          f'{stats["retry_ms"]:.1f} ms ({stats["retried_tiles"]} tiles), stitch '
+          f'{stats["stitch_ms"]:.1f} ms in {stats["attempts"]} attempt(s) (sort and compaction '
+          f'{stats["stitch_ms"] - nms_ms:.1f} ms, NMS {nms_ms:.1f} ms: {passes}), readback '
+          f'{stats["readback_ms"]:.1f} ms; valid survivors of the chunks: {surv or "none"}; '
+          f'detections {len(res["boxes"])} (num_valid {res["num_valid"]}), overflow '
+          f'{res["overflow"]}; peak memory {peak:.2f} GiB', flush=True)
+
+
+def phase_gigapixel(card, floor):
+    """Phase 7: the gigapixel path, TiledInference of full-width CpnU22 on blob
+    mosaics of 8192^2 and 16,384^2, with the stitch's NMS held against its
+    plain version and each of its passes timed alone."""
+    print('== phase 7: gigapixel tiled inference, CpnU22 (full width, spread heads), tile '
+          '1024, stride 768, max_outputs 400,000', flush=True)
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mosaic16 = blob_mosaic(16384)
+    mosaic8 = np.ascontiguousarray(mosaic16[:8192, :8192])
+    print(f'  blob mosaics 16,384^2 and 8192^2 built in {time.perf_counter() - t0:.1f} s', flush=True)
+    kw = dict(in_channels=1, max_detections=2048, samples=32)
+    fp32 = models.CpnU22(**kw)
+    variables = init_jax_variables(fp32, SEED)
+    # spread heads. scripts/bench_gigapixel.py multiplies the JAX package's
+    # output layers by 300 (score) and 25 (Fourier); this init's fields are
+    # far wider already, and those factors saturate the sigmoid and give
+    # contours of some 250 px. These factors give a 256^2 crop of the mosaic
+    # unsaturated scores and 8-px boxes, of which its NMS keeps 26%, about the
+    # share of its candidates that the JAX package's 16,384^2 run kept
+    # (236,877 of 441 x 2000).
+    head = variables['params']
+    head['score_head']['conv1']['kernel'] *= np.float32(0.25)
+    head['fourier_head']['conv1']['kernel'] *= np.float32(0.1)
+    sd = state_dict_from_jax(variables)
+    fp32.load_state_dict(sd, strict=True)
+    bf16 = models.CpnU22(compute_dtype=torch.bfloat16, **kw)
+    bf16.load_state_dict(sd, strict=True)
+    tiled = {name: TiledInference(m, tile_size=TILE, stride=768, batch_size=batch,
+                                  max_outputs=400_000)
+             for name, m, batch in (('bf16', bf16, 4), ('fp32', fp32, 1))}
+    # per compute type, the threshold that leaves at most 2000 foreground
+    # pixels in every tile of the 8192^2 mosaic (exactly 2000 in one): no tile
+    # overflows the capacity of 2048 there, so its stitch sweeps 121 x 2048 rows
+    tiles8 = tile_image(mosaic8, TILE, 768)[0]
+    thresh = {}
+    for name, t in tiled.items():
+        highest = []
+        for i in range(0, len(tiles8), 4):
+            x = torch.from_numpy(tiles8[i:i + 4]).cuda()
+            p = torch.sigmoid(t.model.forward_padded(x, nms=False)['dense_scores'].float())
+            highest.append(torch.topk(p.flatten(1), 2001, dim=1).values[:, -1])
+        thresh[name] = float(torch.cat(highest).max())
+        t(mosaic16[:2 * TILE, :2 * TILE], score_thresh=thresh[name])   # warm-up
+    torch.cuda.synchronize()
+    del tiles8
+    print(f'  thresholds {thresh} (at most 2000 foreground pixels in every 8192^2 tile)',
+          flush=True)
+    check(all(0 < t < 1 for t in thresh.values()), f'thresholds out of range: {thresh}')
+
+    for k in kernels.KERNELS:          # the tiled path's run: counts from 0
+        k.launches = 0
+    runs = {}
+    for label, name, mosaic in (('8192^2 bf16 batch 4', 'bf16', mosaic8),
+                                ('8192^2 fp32 batch 1 (TF32 convolutions)', 'fp32', mosaic8),
+                                ('16384^2 bf16 batch 4', 'bf16', mosaic16)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tiled[name](mosaic, score_thresh=thresh[name])
+        seconds = time.perf_counter() - t0
+        stats = dict(tiled[name].stats)
+        stage_line(card, label, res, stats, seconds, torch.cuda.max_memory_allocated() / 2 ** 30)
+        check(res['num_valid'] == len(res['boxes']) > 0, f'{label}: no detections')
+        check(res['contours'].shape[1:] == (32, 2) and all(
+            np.isfinite(res[k]).all() for k in ('contours', 'boxes', 'scores', 'fourier',
+                                                'locations')), f'{label}: bad results')
+        runs[label] = res, stats
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    print(f'  kernel launches in the tiled path run: {launches}', flush=True)
+    check(all(n > 0 for n in launches.values()), 'a kernel of the tiled path was never launched')
+    # the user's entry point: model(image) above max_imsize (2048) tiles itself
+    # (tile 1024, stride 512) and gives the JAX package's schema in global coordinates
+    image = mosaic8[:2560, :2560, None]
+    model = tiled['fp32'].model
+    t0 = time.perf_counter()
+    out = model(image, score_thresh=thresh['fp32'])
+    seconds = time.perf_counter() - t0
+    ref = TiledInference(model, tile_size=TILE, stride=512)(image, score_thresh=thresh['fp32'])
+    boxes = out['boxes'][0] if len(out['boxes']) == 1 else np.zeros((0, 4))
+    print(f'  [{card}] model(image) on 2560^2 (max_imsize 2048): {out["num_tiles"]} tiles in '
+          f'{seconds:.3f} s, {len(boxes)} detections (TiledInference: {ref["num_valid"]}), '
+          f'boxes up to x {float(boxes[:, 2].max()) if len(boxes) else 0.:.1f}, '
+          f'fg_overflow {out["fg_overflow"]}', flush=True)
+    check(out['num_tiles'] == ref['num_tiles'] == 16 and len(out['contours']) == 1
+          and len(boxes) == ref['num_valid'] > 0 and float(boxes[:, 2].max()) > TILE
+          and np.isfinite(out['contours'][0]).all(), 'model(image) above max_imsize')
+    res16, stats16 = runs['16384^2 bf16 batch 4']
+    check(res16['num_tiles'] == 441 and not res16['overflow'], '16384^2: tiles or overflow')
+    for label in ('8192^2 bf16 batch 4', '8192^2 fp32 batch 1 (TF32 convolutions)'):
+        check(runs[label][0]['num_tiles'] == 121 and runs[label][1]['retried_tiles'] == 0
+              and [p['name'] for p in runs[label][1]['nms']] == ['exact'],
+              f'{label}: not 121 tiles in one exact pass')
+    surv = [p for p in stats16['nms'] if 'count' in p]
+    check(len(surv) > 0, '16384^2: the stitch did not take the chunked NMS')
+
+    # the stitch's NMS on the same candidates against its plain version, and
+    # each of its passes alone, timed beside its bound
+    t = tiled['bf16'].model.nms_thresh
+    chunk, tile = tiled['bf16'].nms_chunk, tiled['bf16'].nms_tile
+    for label, mosaic, cap in (('8192^2', mosaic8, None), ('16384^2', mosaic16, surv[-1]['cap'])):
+        flat, _, _ = tiled['bf16'].candidates(mosaic, thresh['bf16'])
+        boxes, scores, valid = flat['boxes'], flat['scores'], flat['valid']
+        traces = [], []
+        keep = nms_chunked(boxes, scores, valid, t, chunk, tile, cap, trace=traces[0])
+        plain = nms_chunked(boxes, scores, valid, t, chunk, tile, cap, trace=traces[1],
+                            sweep=_nms_sweep)
+        check(torch.equal(keep, plain), f'{label}: the stitch NMS and its plain version differ')
+        for p, q in zip(*traces):
+            if 'ms' in p:
+                print(f'  [{card}] stitch NMS {label} {p["name"]} {p["batch"]} x {p["m"]} '
+                      f'({"large" if large_layout(p["m"]) else "packed"} layout): '
+                      f'{p["ms"]:.3f} ms, plain {q["ms"]:.3f} ms, {p["launches"]} launches; '
+                      f'keep == plain', flush=True)
+            else:
+                print(f'  stitch NMS {label}: {p["count"]} valid survivors of the chunks, cap '
+                      f'{p["cap"]}', flush=True)
+        print(f'  stitch NMS {label}: {len(boxes)} candidate rows, {int(valid.sum())} valid, '
+              f'{int(keep.sum())} kept, keep mask == plain version', flush=True)
+        if len(boxes) > 262_144:
+            (bc, vc, kc), (bs, vs, ks) = chunked_passes(boxes, scores, valid, t, chunk, tile, cap)
+            time_sweep(f'stitch {label} per-chunk pass', bc, vc, kc, t, card, floor)
+            time_sweep(f'stitch {label} cross-chunk pass', bs, vs, ks, t, card, floor)
+        else:
+            _, b, v = sort_by_score(boxes[None], scores[None], valid[None])
+            time_sweep(f'stitch {label} exact pass', b, v, nms_sweep(b, v, t), t, card, floor)
+        del flat, boxes, scores, valid
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -618,13 +886,16 @@ def main():
     floor = phase_kernels(rng, card, errs)
     phase_card_vs_cpu(rng)
     launches, rec = main_path(rng, card, errs, floor)
+    phase_tiled_card_vs_cpu(rng)
+    launches_tiled = phase_gigapixel(card, floor)
     check('jax' not in sys.modules and 'celldetection_tpu' not in sys.modules,
           'JAX or the JAX package was imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'celldetection_tpu_torch/csrc/{SOURCES[name]}',
         'replaces': 'celldetection_tpu/kernels/nms_pallas.py:59',
-        'launches': launches[name], 'max_abs_err': errs[name],
+        'launches': launches[name], 'launches_tiled': launches_tiled[name],
+        'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],
         'library_ms': None} for name in SOURCES]}

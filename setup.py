@@ -12,7 +12,7 @@ setup(
     packages=find_packages(include=('celldetection_tpu', 'celldetection_tpu.*',
                                     'celldetection_tpu_torch', 'celldetection_tpu_torch.*')),
     # the port's CUDA sources, compiled by nvcc at first use
-    package_data={'celldetection_tpu_torch': ['csrc/*.cu']},
+    package_data={'celldetection_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'opencv-python',

@@ -17,7 +17,8 @@ from celldetection_tpu.ops import batched_box_nms as jax_batched_box_nms
 from celldetection_tpu.ops.boxes import _suppression_matrix as jax_suppression_matrix
 from celldetection_tpu.ops.boxes import nms_padded as jax_nms_padded
 from celldetection_tpu_torch.kernels import KERNELS
-from celldetection_tpu_torch.kernels.nms import band_plan, bits_sweep, pair_bands, slots_layout
+from celldetection_tpu_torch.kernels.nms import (band_plan, bits_sweep, large_layout, pair_bands,
+                                                 slots_layout)
 from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _suppression_counts,
                                                _suppression_pairs, _unpack_words, sort_by_score)
 from test_torch_port_nms import crowded_boxes, knife_edge_pairs
@@ -176,3 +177,31 @@ def test_plain_kernels_count_no_launch():
     before = [k.launches for k in KERNELS]
     sweep(crowded_boxes(2, (2, 300)), 0.5)
     assert [k.launches for k in KERNELS] == before
+
+
+@pytest.mark.parametrize('shape', [(2, 1000), (1, 2500), (3, 64 * 33)])
+def test_large_layout_flags_are_the_byte_flags_as_bits(shape):
+    """Images above 262,144 boxes keep one bit per block pair: bit c % 32 of
+    int32 word c / 32 of each row block (bit 31 the sign bit)."""
+    boxes, scores, valid = (torch.from_numpy(a) for a in crowded_boxes(5, shape, extent=150.))
+    _, b, v = sort_by_score(boxes, scores, valid)
+    bsz, nb = shape[0], -(-shape[1] // BLOCK)
+    small = _suppression_counts(b, v, 0.5)
+    large = _suppression_counts(b, v, 0.5, large=True)
+    for got, want in zip(large, small):
+        if got.dtype != torch.int32:
+            assert torch.equal(got, want)
+    words = large[2].view(bsz, nb, -(-nb // 32)).long() & 0xffffffff
+    bits = (words[..., None] >> torch.arange(32)) & 1 == 1
+    assert torch.equal(bits.flatten(2)[..., :nb], small[2].view(bsz, nb, nb).bool())
+    assert not bits.flatten(2)[..., nb:].any() and small[2].any()
+
+
+@pytest.mark.parametrize('budget', [0, 300, 10 ** 9])
+def test_large_layout_sweep_matches_plain(budget):
+    """The large layout through every wrapper's plain version, banded and not."""
+    assert large_layout(64 * 4097) and not large_layout(64 * 4096)
+    arrays = crowded_boxes(6, (2, 1500), extent=200.)
+    _, b, v = sort_by_score(*(torch.from_numpy(a) for a in arrays))
+    np.testing.assert_array_equal(bits_sweep(b, v, 0.5, pair_budget=budget, large=True).numpy(),
+                                  _nms_sweep(b, v, 0.5).numpy())

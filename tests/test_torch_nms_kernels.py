@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from celldetection_tpu_torch.kernels import KERNELS, nms_bits_count, nms_bits_fill, nms_resolve
-from celldetection_tpu_torch.kernels.nms import band_plan, bits_sweep, nms_sweep, slots_layout
+from celldetection_tpu_torch.kernels.nms import (band_plan, bits_sweep, large_layout, nms_sweep,
+                                                 slots_layout)
 from celldetection_tpu_torch.ops import nms_padded
-from celldetection_tpu_torch.ops.boxes import BLOCK, _nms_sweep, sort_by_score
+from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _suppression_counts,
+                                               sort_by_score)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +89,31 @@ def test_banded_sweep_matches_plain_on_card(card):
     before = nms_resolve.launches
     assert torch.equal(bits_sweep(b, v, 0.5, pair_budget=50), _nms_sweep(b, v, 0.5))
     assert nms_resolve.launches - before > 5
+
+
+@pytest.mark.parametrize('seed, shape, extent', [(4, (2, 5000), 400.), (5, (1, 20000), 900.)])
+def test_large_layout_matches_plain_on_card(card, seed, shape, extent):
+    """The layout of images above 262,144 boxes (bit flags, the resolve's
+    variant with a shallower ring), forced at small N: the count against its
+    plain version, the sweep against ``_nms_sweep`` in one band and in many."""
+    arrays = crowded_boxes(seed, shape, extent)
+    _, b, v = sort_by_score(*(torch.from_numpy(a).to(card) for a in arrays))
+    got = nms_bits_count(b, v, 0.5, large=True)
+    for g, w in zip(got, _suppression_counts(b, v, 0.5, large=True)):
+        assert torch.equal(g, w)
+    nb = -(-shape[1] // BLOCK)
+    assert got[2].dtype == torch.int32 and got[2].numel() == shape[0] * nb * -(-nb // 32)
+    want = _nms_sweep(b, v, 0.5)
+    before = nms_resolve.launches
+    assert torch.equal(bits_sweep(b, v, 0.5, large=True), want)
+    assert torch.equal(bits_sweep(b, v, 0.5, pair_budget=500, large=True), want)
+    assert nms_resolve.launches - before > 2
+
+
+def test_sweep_past_262144_boxes_matches_plain_on_card(card):
+    """The smallest image that takes the large layout by itself."""
+    n = 262_145
+    assert large_layout(n) and not large_layout(n - 1)
+    _, b, v = sort_by_score(*(torch.from_numpy(a).to(card)
+                              for a in crowded_boxes(6, (1, n), 3200.)))
+    assert torch.equal(nms_sweep(b, v, 0.5), _nms_sweep(b, v, 0.5))

@@ -26,7 +26,6 @@ import jax
 import jax.numpy as jnp
 import msgpack
 import numpy as np
-import pytest
 import torch
 from flax import serialization
 
@@ -160,11 +159,42 @@ def test_cpn_u22_capacity_padding_matches_jax():
     assert res['fg_overflow'] == [False] and len(res['contours'][0]) <= 256
 
 
+def test_forward_padded_offsets_and_capacity_match_jax():
+    """Tile offsets added after the clamping and the boxes (global
+    coordinates), and a per-call capacity (the capacity retry of tiled
+    inference), against the JAX package's ``offsets=`` and a model of that
+    capacity: equal valid sets and fg counts, every coordinate output within
+    1e-3 px on 99% of values."""
+    kw = dict(in_channels=3, samples=8, backbone_kwargs=dict(base_channels=4))
+    pm = tmodels.CpnU22(device='cpu', max_detections=64, **kw)
+    variables = init_jax_variables(pm, 3)
+    pm.load_state_dict(state_dict_from_jax(variables), strict=True)
+    jm = jmodels.CpnU22(max_detections=128, **kw)
+    x = np.random.RandomState(3).rand(2, 64, 64, 3).astype(np.float32)
+    offsets = np.float32([[48., 96.], [1024., 7680.]])
+    out_j = jax.jit(lambda v, x, o: jm.forward_padded(v, x, score_thresh=0.5, nms=False,
+                                                      offsets=o))(
+        jax.tree_util.tree_map(jnp.asarray, variables), jnp.asarray(x), jnp.asarray(offsets))
+    out_p = pm.forward_padded(torch.from_numpy(x), score_thresh=0.5, nms=False,
+                              offsets=torch.from_numpy(offsets), max_detections=128)
+    np.testing.assert_array_equal(out_p['fg_count'].numpy(), np.asarray(out_j['fg_count']))
+    valid = out_p['valid'].numpy()
+    np.testing.assert_array_equal(valid, np.asarray(out_j['valid']))
+    assert valid.shape == (2, 128) and 0 < valid.sum()
+    for key in ('contours', 'contour_proposals', 'boxes', 'locations'):
+        got, want = out_p[key].numpy()[valid], np.asarray(out_j[key])[valid]
+        assert (np.abs(got - want) <= 1e-3).mean() >= 0.99, key
+    assert (out_p['boxes'].numpy()[1][valid[1]][:, :2] >= offsets[1]).all()
+
+
 def test_oversized_input_names_the_tiling_slice():
+    """Above ``max_imsize`` the input goes through the tiling slice
+    (``parallel/tiles.py``); its parity is ``tests/test_torch_port_tiles.py``."""
     pm = tmodels.CpnU22(in_channels=3, backbone_kwargs=dict(base_channels=4), max_imsize=32,
-                        device='cpu')
-    with pytest.raises(NotImplementedError, match='tiling slice'):
-        pm(np.zeros((64, 64, 3), np.uint8))
+                        tile_size=32, tile_stride=24, device='cpu')
+    out = pm(np.zeros((64, 64, 3), np.uint8))
+    assert out['num_tiles'] == 9 and isinstance(out['fg_overflow'], bool)
+    assert len(out['contours']) == 1 and out['contours'][0].shape[1:] == (32, 2)
 
 
 def _trained_fixture():

@@ -96,9 +96,11 @@ def test_resize_bilinear_fixture_and_jax():
     close(y, np.moveaxis(fx['y'], 1, -1), rtol=1e-4, atol=1e-5)
     close(y, jops.resize_bilinear(jnp.asarray(x), (37, 41)), rtol=1e-5, atol=1e-5)
     assert torch.equal(tops.resize_bilinear(t(x), (16, 16)), t(x))   # equal size: no-op
-    # a downscale would antialias in JAX and not in F.interpolate: it raises
-    with pytest.raises(NotImplementedError):
-        tops.resize_bilinear(t(x), (8, 8))
+    # a downscale antialiases, in JAX and in the port (the score bounds of
+    # masked tiled inference): within fp32 rounding of the filter weights
+    for size in ((8, 8), (5, 11)):
+        close(tops.resize_bilinear(t(x), size), jops.resize_bilinear(jnp.asarray(x), size),
+              rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize('size', [(32, 48), (24, 20), (8, 8)])
