@@ -78,16 +78,18 @@ class Norm(nn.Module):
 
 
 class ConvNorm(nn.Sequential):
-    """Convolution + normalization."""
+    """Convolution + normalization; ``norm_layer=None`` is the convolution alone (the FPN's)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  padding: Optional[int] = None, stride: int = 1,
-                 norm_layer: str = 'batchnorm2d', use_bias: bool = True, groups: int = 1):
+                 norm_layer: Optional[str] = 'batchnorm2d', use_bias: bool = True,
+                 groups: int = 1):
         pad = kernel_size // 2 if padding is None else padding
-        super().__init__(
-            nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=pad,
-                      bias=use_bias, groups=groups),
-            Norm(out_channels, norm_layer))
+        layers = [nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=pad,
+                            bias=use_bias, groups=groups)]
+        if norm_layer is not None:
+            layers.append(Norm(out_channels, norm_layer))
+        super().__init__(*layers)
 
 
 class TwoConvNormRelu(nn.Sequential):

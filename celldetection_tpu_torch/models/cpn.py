@@ -7,7 +7,9 @@ Counterpart of ``celldetection_tpu/models/cpn.py``: ``CPNCore`` (69-187),
 ``prepare_inputs`` (708-739), ``__call__`` (741-783, here ``forward``, which
 sends inputs above ``max_imsize`` through
 :class:`..parallel.tiles.TiledInference`) and ``detach`` (785-806),
-``CpnU22`` (834-846), ``CpnU12`` (880-884) and ``get_cpn``.
+``CpnU22`` (834-846), ``CpnU12`` (880-884), the twenty
+``Cpn<ResNet>{UNet,FPN}`` of ``_register_backbone_cpns`` (887-905, 1017-1041)
+and ``get_cpn``.
 
 As in the JAX package every selection is capacity-padded: per image the top
 ``max_detections`` foreground pixels are carried through decode, refinement
@@ -26,6 +28,7 @@ from ..ops.commons import interpolate_nchw, process_scores
 from ..ops.cpn import (batched_box_nms, fouriers2contours, rel_location2abs_location,
                        scale_contours, scale_fourier)
 from ..util.device import resolve_device
+from . import fpn as fpn_lib
 from . import unet as unet_lib
 from .commons import FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
 
@@ -411,7 +414,11 @@ def register_model(fn):
 
 def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None, **kwargs):
     device = resolve_device(device)   # fail before building on a card-less host
-    backbone = backbone_fn(in_channels, 0, backbone_kwargs=dict(backbone_kwargs or {}))
+    backbone_kwargs = dict(backbone_kwargs or {})
+    if backbone_kwargs.pop('pretrained', False):
+        raise NotImplementedError('pretrained backbone weights are not ported yet: they come '
+                                  'with checkpoint I/O')
+    backbone = backbone_fn(in_channels, 0, backbone_kwargs=dict(backbone_kwargs))
     model = CPN(backbone=backbone, device=device, **kwargs)
     model.hparams.update(in_channels=in_channels, backbone_kwargs=backbone_kwargs)
     return model
@@ -438,6 +445,38 @@ def CpnU12(in_channels: int, backbone_kwargs: dict = None, **kwargs):
     m = _make_cpn(unet_lib.U12, in_channels, backbone_kwargs, **kwargs)
     m.hparams['model'] = 'CpnU12'
     return m
+
+
+def _register_backbone_cpns():
+    """``Cpn<ResNet>{UNet,FPN}``: CPNs over the ResNet-family UNets and FPNs."""
+    def make(cpn_name, backbone_fn):
+        def ctor(in_channels: int, order: int = 5, nms_thresh: float = .2,
+                 score_thresh: float = .9, samples: int = 32, classes: int = 2,
+                 refinement: bool = True, refinement_iterations: int = 4,
+                 refinement_margin: float = 3., refinement_buckets: int = 1,
+                 backbone_kwargs: dict = None, **kwargs):
+            m = _make_cpn(backbone_fn, in_channels, backbone_kwargs, order=order,
+                          nms_thresh=nms_thresh, score_thresh=score_thresh, samples=samples,
+                          classes=classes, refinement=refinement,
+                          refinement_iterations=refinement_iterations,
+                          refinement_margin=refinement_margin,
+                          refinement_buckets=refinement_buckets, **kwargs)
+            m.hparams['model'] = cpn_name
+            return m
+        ctor.__name__ = cpn_name
+        ctor.__doc__ = f'CPN with a {cpn_name[3:]} backbone.'
+        return ctor
+
+    for name in ('ResNet18', 'ResNet34', 'ResNet50', 'ResNet101', 'ResNet152', 'ResNeXt50',
+                 'ResNeXt101', 'ResNeXt152', 'WideResNet50', 'WideResNet101'):
+        for kind, lib in (('UNet', unet_lib), ('FPN', fpn_lib)):
+            cpn_name = f'Cpn{name}{kind}'
+            fn = make(cpn_name, getattr(lib, f'{name}{kind}'))
+            models_by_name[cpn_name] = globals()[cpn_name] = fn
+            __all__.append(cpn_name)
+
+
+_register_backbone_cpns()
 
 
 def get_cpn(name: str):

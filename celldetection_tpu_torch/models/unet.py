@@ -1,22 +1,29 @@
 """U-Net family (``nn.Module``s, NCHW inside).
 
 Counterpart of ``celldetection_tpu/models/unet.py``: ``UNetEncoder`` (28-67),
-``GeneralizedUNet`` (70-190), ``BackboneAsUNet``/``UNet`` (198-249),
-``_make_encoder_unet`` (258-272), ``U22`` (275-278) and ``U12`` (299-302).
+``GeneralizedUNet`` (70-190, with its stride bridging), ``BackboneAsUNet``/``UNet``
+(198-249), ``_make_encoder_unet`` (258-272), ``U22`` (275-278), ``U12``
+(299-302), ``_backbone_unet`` (311-343) and the ten ResNet-family UNets
+(346-356).
 
 Module names follow the reference torch layout (``body.<i>``,
 ``unet.inner_blocks.<i>``, ``unet.layer_blocks.<i>``) so that weights from
 ``util.weights.state_dict_from_jax`` load with ``strict=True``.
 """
+import warnings
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.commons import interpolate_nchw
+from . import resnet as resnet_lib
 from .commons import Normalize, TwoConvNormRelu, get_activation
 
-__all__ = ['UNetEncoder', 'GeneralizedUNet', 'BackboneAsUNet', 'UNet', 'U22', 'U12']
+__all__ = ['UNetEncoder', 'GeneralizedUNet', 'BackboneAsUNet', 'UNet', 'U22', 'U12',
+           'ResNet18UNet', 'ResNet34UNet', 'ResNet50UNet', 'ResNet101UNet', 'ResNet152UNet',
+           'ResNeXt50UNet', 'ResNeXt101UNet', 'ResNeXt152UNet', 'WideResNet50UNet',
+           'WideResNet101UNet']
 
 
 class UNetEncoder(nn.Sequential):
@@ -55,8 +62,11 @@ class GeneralizedUNet(nn.Module):
     Per level, top-down: the inner 1x1 conv reduces channels *before* the
     upsample (exact for nearest: a 1x1 conv commutes with a spatial convex
     combination), then concat with the lateral map and a ``block_cls``.
-    Stride bridging (encoders whose first stride exceeds 1) belongs to the
-    ResNeXt slice and raises here.
+    Stride bridging: an encoder whose first stride is ``2**n > 1`` gets ``n``
+    bridge levels above it, each a bias-free ``TwoConvNormRelu`` on the
+    2x-upsampled top-down map. The output keys are the encoder's, finest
+    first, so with bridges ``'0'`` names the stride-1 level and the deepest
+    decoder level has no key (``zip`` truncates, as in the JAX package).
     """
 
     def __init__(self, in_channels_list: Sequence[int], out_channels: int = 0, block_cls=None,
@@ -64,17 +74,18 @@ class GeneralizedUNet(nn.Module):
                  interpolate: str = 'nearest', in_strides_list: Optional[Sequence[int]] = None,
                  out_channels_list: Optional[Sequence[int]] = None, keep_features: bool = True):
         super().__init__()
-        if in_strides_list is not None and in_strides_list[0] > 1:
-            raise NotImplementedError('GeneralizedUNet stride bridging (first stride > 1) '
-                                      'is not ported yet: it comes with the ResNeXt slice')
         block_cls = block_cls or TwoConvNormRelu
         block_kwargs = block_kwargs or {}
-        in_list = list(in_channels_list)
-        out_list = list(out_channels_list) if out_channels_list is not None else list(in_list)
+        in_list, out_list, self.bridges = _plan(in_channels_list, out_channels_list,
+                                                in_strides_list)
+        self.in_list = in_list
         self.out_channels_list = out_list
         self.interpolate = interpolate
         self.keep_features = keep_features
         depth = len(in_list) - 1
+        # a bridge inherits only the activation and the norm of block_kwargs
+        bridge_kwargs = {k: v for k, v in block_kwargs.items()
+                         if k in ('activation', 'norm_layer')}
         self.inner_blocks = nn.ModuleDict()
         self.layer_blocks = nn.ModuleDict()
         for i in range(depth - 1, -1, -1):
@@ -85,8 +96,12 @@ class GeneralizedUNet(nn.Module):
                 # the JAX package's inner{i+1}, the reference's inner_blocks.<i>
                 self.inner_blocks[str(i)] = nn.Conv2d(inner_inc, inner_ouc, 1)
                 top_down = inner_ouc
-            self.layer_blocks[str(i)] = block_cls(in_list[i] + top_down, out_list[i],
-                                                  **block_kwargs)
+            if in_list[i] > 0:
+                self.layer_blocks[str(i)] = block_cls(in_list[i] + top_down, out_list[i],
+                                                      **block_kwargs)
+            else:
+                self.layer_blocks[str(i)] = TwoConvNormRelu(top_down, out_list[i],
+                                                            use_bias=False, **bridge_kwargs)
         self.out_layer = nn.Conv2d(out_list[0], out_channels, 1) if out_channels > 0 else None
         self.final_activation = None if final_activation is None else \
             get_activation(final_activation)
@@ -94,16 +109,19 @@ class GeneralizedUNet(nn.Module):
     def forward(self, x: Dict[str, torch.Tensor], size=None):
         names = list(x.keys())
         feats = list(x.values())
+        mode = 'nearest' if self.interpolate == 'nearest' else 'bilinear'
         last_inner = feats[-1]
         results = [last_inner]
-        for i in range(len(feats) - 2, -1, -1):
-            lateral = feats[i]
+        for i in range(len(self.in_list) - 2, -1, -1):
+            lateral = feats[i - self.bridges] if self.in_list[i] > 0 else None
             top_down = last_inner
             if str(i) in self.inner_blocks:
                 top_down = self.inner_blocks[str(i)](top_down)
-            top_down = interpolate_nchw(top_down, lateral.shape[2:],
-                                        'nearest' if self.interpolate == 'nearest' else 'bilinear')
-            last_inner = self.layer_blocks[str(i)](torch.cat([lateral, top_down], 1))
+            t_size = lateral.shape[2:] if lateral is not None else \
+                tuple(2 * s for s in top_down.shape[2:])
+            top_down = interpolate_nchw(top_down, t_size, mode)
+            block_in = top_down if lateral is None else torch.cat([lateral, top_down], 1)
+            last_inner = self.layer_blocks[str(i)](block_in)
             results.insert(0, last_inner)
         final = results[0] if size is None else interpolate_nchw(last_inner, size, 'bilinear')
         if self.out_layer is not None:
@@ -114,6 +132,22 @@ class GeneralizedUNet(nn.Module):
         if self.keep_features:
             out.update({f'encoder.{k}': v for k, v in x.items()})
         return out
+
+
+def _plan(in_channels_list, out_channels_list=None, in_strides_list=None):
+    """The decoder's levels: ``(in_list, out_list, bridges)``, where ``bridges``
+    levels of 0 input channels precede the encoder's (``GeneralizedUNet._plan``
+    of the JAX package)."""
+    in_list = list(in_channels_list)
+    out_list = list(out_channels_list) if out_channels_list is not None else list(in_list)
+    first_stride = 1 if in_strides_list is None else int(in_strides_list[0])
+    bridges = max(first_stride.bit_length() - 1, 0)   # floor(log2(first stride))
+    num = len(in_list)
+    for _ in range(bridges):
+        in_list = [0] + in_list
+        if len(out_list) < num + bridges - 1:
+            out_list = [out_list[0]] + out_list
+    return in_list, out_list, bridges
 
 
 class BackboneAsUNet(nn.Module):
@@ -169,3 +203,38 @@ def U12(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None
     """U-Net 12: 3 resolutions, base 64 channels."""
     return _make_encoder_unet(in_channels, out_channels, 64, 3, None, final_activation,
                               backbone_kwargs, **kwargs)
+
+
+def _backbone_unet(backbone_ctor, default_backbone_kwargs=None):
+    """Encoder backbone + bridged UNet decoder.
+
+    The ResNet-family UNets default to ``fused_initial=False``: the stem is
+    its own stride-2 level feeding the decoder, as in the reference's
+    ``_default_res_kwargs`` and the hosted reference checkpoints.
+    """
+    def ctor(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None,
+             pretrained=False, block_cls=None, **kwargs):
+        if pretrained:
+            warnings.warn('pretrained=True on a bare backbone constructor is not applied '
+                          '(as in the JAX package); pretrained weights are not ported yet',
+                          stacklevel=2)
+        bk = dict(default_backbone_kwargs or {})
+        bk.update(backbone_kwargs or {})
+        encoder = backbone_ctor(in_channels, **bk)
+        return UNet(body=encoder, in_channels_list=list(encoder.out_channels),
+                    in_strides_list=list(encoder.out_strides), out_channels=out_channels,
+                    block_cls=block_cls, final_activation=final_activation, **kwargs)
+    return ctor
+
+
+_RES_UNET_KW = dict(fused_initial=False)
+ResNet18UNet = _backbone_unet(resnet_lib.ResNet18, _RES_UNET_KW)
+ResNet34UNet = _backbone_unet(resnet_lib.ResNet34, _RES_UNET_KW)
+ResNet50UNet = _backbone_unet(resnet_lib.ResNet50, _RES_UNET_KW)
+ResNet101UNet = _backbone_unet(resnet_lib.ResNet101, _RES_UNET_KW)
+ResNet152UNet = _backbone_unet(resnet_lib.ResNet152, _RES_UNET_KW)
+ResNeXt50UNet = _backbone_unet(resnet_lib.ResNeXt50, _RES_UNET_KW)
+ResNeXt101UNet = _backbone_unet(resnet_lib.ResNeXt101, _RES_UNET_KW)
+ResNeXt152UNet = _backbone_unet(resnet_lib.ResNeXt152, _RES_UNET_KW)
+WideResNet50UNet = _backbone_unet(resnet_lib.WideResNet50, _RES_UNET_KW)
+WideResNet101UNet = _backbone_unet(resnet_lib.WideResNet101, _RES_UNET_KW)

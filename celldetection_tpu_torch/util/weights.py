@@ -1,14 +1,20 @@
 """Weights between the JAX package's variables and the port's state dict.
 
-``state_dict_from_jax`` is the port's own copy of the ``encoder='unet'``
-branch of ``celldetection_tpu/util/torch_import.py:export_torch_state_dict``
-(lines 280-400): JAX variables, as nested dicts of numpy arrays
-(``{'params': ..., 'batch_stats': ...}``), become the reference torch layout
-(conv HWIO → OIHW; BatchNorm ``scale``/``bias``/``mean``/``var`` →
+``state_dict_from_jax`` is the port's own copy of
+``celldetection_tpu/util/torch_import.py:export_torch_state_dict`` (lines
+280-400) for the encoders the port has: the U-Net encoder and the ResNet
+body (348-398), the U-Net decoder with its bias-free bridges, and the FPN
+(348-356). JAX variables, as nested dicts of numpy arrays (``{'params': ...,
+'batch_stats': ...}``), become the reference torch layout (conv HWIO → OIHW;
+BatchNorm ``scale``/``bias``/``mean``/``var`` →
 ``weight``/``bias``/``running_mean``/``running_var``) under the keys the port's
 modules carry, so ``load_state_dict(..., strict=True)`` takes it.
 ``init_jax_variables`` goes the other way, to make seeded random weights in
 the JAX layout for a port model.
+
+A ResNet body's JAX variables are the same for ``fused_initial`` True and
+False (only the torch keys of the stem and ``layer1`` differ), so the layout
+is an explicit argument, False by default as in every zoo constructor.
 """
 import re
 from typing import Dict, Tuple
@@ -39,7 +45,14 @@ def _two_conv_suffix(coll: str, p) -> str:
     return f'{b + 1}.{_NORM_LEAVES[(coll, p[-1])]}'
 
 
-def _port_key(coll: str, path: Tuple[str, ...]) -> str:
+def _resnet_stage(layer: int, fused_initial: bool) -> str:
+    """The torch prefix of ResNet ``layer<layer>`` under ``backbone.body``."""
+    if layer == 1:
+        return '0.4' if fused_initial else '1.1'
+    return str(layer - 1 if fused_initial else layer)
+
+
+def _port_key(coll: str, path: Tuple[str, ...], fused_initial: bool = False) -> str:
     """(collection, flax path) → the port's state-dict key."""
     p = list(path)
     conv_leaf = 'weight' if p[-1] == 'kernel' else 'bias'
@@ -56,33 +69,65 @@ def _port_key(coll: str, path: Tuple[str, ...]) -> str:
             return f'core.backbone.unet.layer_blocks.{m.group(2)}.{_two_conv_suffix(coll, p[3:])}'
         if p[2] == 'out_layer':
             return f'core.backbone.unet.out_layer.{conv_leaf}'
+    elif p[:2] == ['backbone', 'fpn']:
+        m = re.fullmatch(r'(inner|layer)(\d+)', p[2])
+        if m and p[3] == 'conv':
+            return f'core.backbone.fpn.{m.group(1)}_blocks.{m.group(2)}.0.{conv_leaf}'
+        if m and p[3] == 'norm':
+            return f'core.backbone.fpn.{m.group(1)}_blocks.{m.group(2)}.1.' \
+                   f'{_NORM_LEAVES[(coll, p[-1])]}'
     elif p[:2] == ['backbone', 'body']:
         m = re.fullmatch(r'block(\d+)', p[2])
         if m:
             i = int(m.group(1))
             pool = '1.' if i > 0 else ''   # body.<i> = Sequential(pool, block) for i > 0
             return f'core.backbone.body.{i}.{pool}{_two_conv_suffix(coll, p[3:])}'
+        if p[2] == 'conv1':
+            return 'core.backbone.body.0.0.weight'
+        if p[2] == 'bn1':
+            return f'core.backbone.body.0.1.{_NORM_LEAVES[(coll, p[-1])]}'
+        m = re.fullmatch(r'layer(\d+)', p[2])
+        b = re.fullmatch(r'block(\d+)', p[3]) if m else None
+        if b:
+            prefix = f'core.backbone.body.{_resnet_stage(int(m.group(1)), fused_initial)}.' \
+                     f'{b.group(1)}'
+            if re.fullmatch(r'conv\d', p[4]):
+                return f'{prefix}.{p[4]}.weight'
+            if re.fullmatch(r'bn\d', p[4]):
+                return f'{prefix}.{p[4]}.{_NORM_LEAVES[(coll, p[-1])]}'
+            if p[4] == 'downsample_conv':
+                return f'{prefix}.downsample.0.weight'
+            if p[4] == 'downsample_norm':
+                return f'{prefix}.downsample.1.{_NORM_LEAVES[(coll, p[-1])]}'
     raise KeyError(f'no port module for {coll}/{"/".join(path)} (not ported yet?)')
 
 
-def _jax_path(key: str) -> Tuple[str, Tuple[str, ...], bool]:
-    """The port's state-dict key → (collection, flax path, is conv kernel)."""
+def _jax_path(key: str, encoder: str = 'unet',
+              fused_initial: bool = False) -> Tuple[str, Tuple[str, ...], bool]:
+    """The port's state-dict key → (collection, flax path, is conv kernel).
+
+    ``encoder`` (``'unet'`` or ``'resnet'``) names the body: the stem's keys
+    ``body.0.0``/``body.0.1`` are a U-Net block's convolution and norm, or a
+    ResNet's ``conv1``/``bn1``; ``fused_initial`` the ResNet body's layout.
+    """
     def conv(prefix, leaf):
         return 'params', prefix + ('kernel' if leaf == 'weight' else 'bias',), leaf == 'weight'
+
+    def norm(prefix, leaf):
+        coll, name = _NORM_PATHS[leaf]
+        return coll, prefix + ('norm', name), False
 
     def two_conv(prefix, idx, leaf):
         block = ('block0', 'block0', None, 'block1', 'block1')[idx]
         if idx in (0, 3):
             return conv(prefix + (block, 'conv'), leaf)
-        coll, name = _NORM_PATHS[leaf]
-        return coll, prefix + (block, 'norm', 'norm', name), False
+        return norm(prefix + (block, 'norm'), leaf)
 
     m = re.fullmatch(r'core\.(\w+_head)\.block\.([014])\.(\w+)', key)
     if m:
         head, idx, leaf = m.groups()
         if idx == '1':
-            coll, name = _NORM_PATHS[leaf]
-            return coll, (head, 'norm', 'norm', name), False
+            return norm((head, 'norm'), leaf)
         return conv((head, 'conv0' if idx == '0' else 'conv1'), leaf)
     m = re.fullmatch(r'core\.backbone\.unet\.inner_blocks\.(\d+)\.(weight|bias)', key)
     if m:
@@ -93,19 +138,47 @@ def _jax_path(key: str) -> Tuple[str, Tuple[str, ...], bool]:
     m = re.fullmatch(r'core\.backbone\.unet\.out_layer\.(weight|bias)', key)
     if m:
         return conv(('backbone', 'unet', 'out_layer'), m.group(1))
-    m = re.fullmatch(r'core\.backbone\.body\.(\d+)\.(1\.)?([0134])\.(\w+)', key)
-    if m and (int(m.group(1)) > 0) == bool(m.group(2)):
-        return two_conv(('backbone', 'body', f'block{m.group(1)}'), int(m.group(3)), m.group(4))
+    m = re.fullmatch(r'core\.backbone\.fpn\.(inner|layer)_blocks\.(\d+)\.([01])\.(\w+)', key)
+    if m:
+        prefix = ('backbone', 'fpn', f'{m.group(1)}{m.group(2)}')
+        return conv(prefix + ('conv',), m.group(4)) if m.group(3) == '0' else \
+            norm(prefix + ('norm',), m.group(4))
+    if encoder == 'unet':
+        m = re.fullmatch(r'core\.backbone\.body\.(\d+)\.(1\.)?([0134])\.(\w+)', key)
+        if m and (int(m.group(1)) > 0) == bool(m.group(2)):
+            return two_conv(('backbone', 'body', f'block{m.group(1)}'), int(m.group(3)),
+                            m.group(4))
+    elif encoder == 'resnet':
+        body = ('backbone', 'body')
+        if key == 'core.backbone.body.0.0.weight':
+            return conv(body + ('conv1',), 'weight')
+        m = re.fullmatch(r'core\.backbone\.body\.0\.1\.(\w+)', key)
+        if m:
+            return norm(body + ('bn1',), m.group(1))
+        m = re.fullmatch(r'core\.backbone\.body\.(\d(?:\.\d)?)\.(\d+)\.'
+                         r'(conv\d|bn\d|downsample\.0|downsample\.1)\.(\w+)', key)
+        layer = {_resnet_stage(i, fused_initial): i for i in range(1, 5)}.get(m.group(1)) \
+            if m else None
+        if layer:
+            prefix = body + (f'layer{layer}', f'block{m.group(2)}')
+            kind = m.group(3).replace('downsample.0', 'downsample_conv').replace(
+                'downsample.1', 'downsample_norm')
+            if kind.startswith(('bn', 'downsample_norm')):
+                return norm(prefix + (kind,), m.group(4))
+            return conv(prefix + (kind,), m.group(4))
     raise KeyError(f'no JAX variable for port key {key}')
 
 
-def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """JAX CPN variables (nested dicts of arrays) → the port's state dict (CPU tensors)."""
+def state_dict_from_jax(variables, fused_initial: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX CPN variables (nested dicts of arrays) → the port's state dict (CPU tensors).
+
+    ``fused_initial``: the layout of a ResNet body (ignored for others).
+    """
     out = {}
     for coll, tree in variables.items():
         for path, v in _flatten(tree):
             v = np.asarray(v)
-            key = _port_key(coll, path)
+            key = _port_key(coll, path, fused_initial)
             if path[-1] == 'kernel':
                 v = np.transpose(v, (3, 2, 0, 1))   # HWIO -> OIHW
             out[key] = torch.from_numpy(np.array(v))   # an owned, contiguous copy
@@ -118,12 +191,17 @@ def init_jax_variables(model: torch.nn.Module, seed: int = 0) -> dict:
     Conv kernels are He-uniform (``sqrt(6 / fan_in)``), which keeps activation
     scale through ReLU stacks; conv biases and BatchNorm statistics are small
     perturbations around the identity. ``state_dict_from_jax`` of the result
-    loads into ``model`` with ``strict=True``.
+    loads into ``model`` with ``strict=True`` (given the ``fused_initial`` of
+    a ResNet body, which this function reads from ``model``).
     """
+    from ..models.resnet import ResNetEncoder   # the models import this package
+    body = model.core.backbone.body
+    resnet = isinstance(body, ResNetEncoder)
+    encoder, fused_initial = ('resnet', body.fused_initial) if resnet else ('unet', False)
     rng = np.random.RandomState(seed)
     variables = {}
     for key, t in model.state_dict().items():
-        coll, path, is_kernel = _jax_path(key)
+        coll, path, is_kernel = _jax_path(key, encoder, fused_initial)
         shape = tuple(t.shape)
         if is_kernel:
             o, i, kh, kw = shape

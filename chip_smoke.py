@@ -40,7 +40,17 @@ Phases, in order; any failure exits non-zero:
      the kernel launches of those runs; ``model(image)`` on a 2560^2 image
      (above ``max_imsize``) against ``TiledInference``; then the stitch's
      NMS on the same candidates against its plain version on the card, and
-     each NMS pass of the stitch timed alone beside its bound.
+     each NMS pass of the stitch timed alone beside its bound (the 16,384^2
+     cross-chunk pass at each survivor cap it took);
+  8. the flagship, full-width and full-depth CpnResNeXt101UNet, and
+     CpnResNet18FPN with three classes, each at 256^2 on the card against
+     the same model on the CPU, TF32 off;
+  9. the ResNet path: ``CPN.forward_padded`` of the flagship on 1024^2 tiles,
+     fp32 at batch 1 and bf16 at batch 4, as phase 5 drives CpnU22 (the
+     kernel launches of that run are ``launches_resnet``), then
+     CpnResNet18FPN with three classes in bf16 at batch 4;
+ 10. ``TiledInference`` of the flagship on a 2048^2 blob mosaic (tile 1024,
+     stride 768), bf16 at batch 4: tiles/s and ms by stage.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -71,6 +81,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 TILE = 1024          # main-path tile side (the reference CLI's default tile)
 CHECK_SIZE = 256     # side of the card-vs-CPU check
+# the flagship as bench.py:36 and scripts/profile_flagship.py:63 build it:
+# order 5, 32 samples, K = 2048, 4 refinement loops, NMS threshold 0.2
+FLAGSHIP = dict(order=5, samples=32, max_detections=2048, refinement_iterations=4,
+                nms_thresh=0.2)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -357,6 +371,41 @@ def to_dev(arrays, device):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
 
 
+def random_weights(model, tame=False, score=1., fourier=1.):
+    """Seeded random weights for ``model`` (numpy seed ``SEED``) as its state dict.
+
+    ``tame``: for deep residual encoders, whose random activations grow
+    block by block until the score sigmoid saturates at exactly 1 (no
+    threshold gap, no ranking): the last norm of every residual branch is
+    scaled by 0.1, the score head's output layer by 0.25 and the refinement
+    head's by 0.01 (its logits would otherwise saturate ``3 tanh``).
+    ``score``, ``fourier``: further factors on those heads' output layers.
+    """
+    variables = init_jax_variables(model, SEED)
+    params = variables['params']
+    if tame:
+        for layer, blocks in params['backbone']['body'].items():
+            if layer.startswith('layer'):
+                for block in blocks.values():
+                    last = block['bn3' if 'bn3' in block else 'bn2']['norm']
+                    last.update({k: v * np.float32(0.1) for k, v in last.items()})
+        score *= 0.25
+        params['refinement_head']['conv1']['kernel'] *= np.float32(0.01)
+        params['refinement_head']['conv1']['bias'] *= np.float32(0.01)
+    for head, factor in (('score_head', score), ('fourier_head', fourier)):
+        if factor != 1.:
+            params[head]['conv1']['kernel'] *= np.float32(factor)
+    return state_dict_from_jax(variables)
+
+
+def threshold_above(probs, count):
+    """The largest score threshold that leaves at least ``count`` pixels of
+    every image of ``probs [B, ...]`` above it (ties at the cut included)."""
+    flat = probs.reshape(probs.shape[0], -1).float()
+    cut = torch.topk(flat, count, dim=1).values[:, -1:]
+    return float(torch.where(flat < cut, flat, -1.).amax(1).min())
+
+
 def threshold_in_gap(probs, lo, hi):
     """A score threshold in the widest gap of the sorted probabilities that
     leaves between ``lo`` and ``hi`` pixels above it; returns (threshold, gap)."""
@@ -457,36 +506,57 @@ def phase_kernels(rng, card, errs):
     return floor
 
 
-def phase_card_vs_cpu(rng):
-    """Phase 4: full-width CpnU22 at 256^2, the card against the CPU, TF32 off."""
-    print('== phase 4: CpnU22 (full width) at 256^2, card vs CPU, TF32 off', flush=True)
+def phase_card_vs_cpu(rng, title, build, tame=False):
+    """The model ``build(device=...)`` makes at 256^2, the card against the
+    CPU, TF32 off: dense heads, valid sets before and after NMS, classes and
+    contours (phases 4 and 8)."""
+    print(f'== {title} at {CHECK_SIZE}^2, card vs CPU, TF32 off', flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cpu_m = models.CpnU22(in_channels=3, device='cpu')
-    sd = state_dict_from_jax(init_jax_variables(cpu_m, SEED))
+    cpu_m = build(device='cpu')
+    sd = random_weights(cpu_m, tame)
     cpu_m.load_state_dict(sd, strict=True)
-    gpu_m = models.CpnU22(in_channels=3)
+    gpu_m = build()
     gpu_m.load_state_dict(sd, strict=True)
     x = torch.from_numpy(rng.rand(1, CHECK_SIZE, CHECK_SIZE, 3).astype(np.float32))
+    t0 = time.perf_counter()
     with torch.no_grad():
         dc = cpu_m.core(x)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
         dg = {k: v.cpu() for k, v in gpu_m.core(x.cuda()).items() if v is not None}
     # fp32 convolutions summed in another order by cuDNN and the CPU library,
-    # over 22 layers and the 7x7 heads: 1e-3 of each map's magnitude (the
-    # refinement map is 3 * tanh of logits many times larger than itself).
+    # through the whole backbone and the 7x7 heads: 1e-3 of each map's
+    # magnitude (the refinement map is 3 * tanh of logits many times larger
+    # than itself).
     for key, v in dg.items():
         err = float((v - dc[key]).abs().max())
         tol = 1e-3 * max(1., float(dc[key].abs().max()))
         print(f'  dense {key} {tuple(v.shape)}: max |card - cpu| = {err:.3e} (atol {tol:.3e})',
               flush=True)
         check(err <= tol, f'dense {key} differs: {err} > {tol}')
-    p_cpu = torch.sigmoid(dc['scores'])
-    p_err = float((torch.sigmoid(dg['scores']) - p_cpu).abs().max())
-    thresh, gap = threshold_in_gap(p_cpu.numpy(), 500, 2048)
-    check(gap > 4 * p_err, f'score gap {gap} too narrow for the card-cpu difference {p_err}')
+    if gpu_m.score_channels > 2:
+        # classes are the argmax of the logits, and no threshold can be placed
+        # in a gap: a pixel whose two largest logits lie within 4x the
+        # card-CPU difference may take either class on either side, and only
+        # such pixels may be foreground on one side alone
+        top2 = dc['scores'].topk(2, -1).values
+        margin = (top2[..., 0] - top2[..., 1]).flatten()
+        p_err = float((dg['scores'] - dc['scores']).abs().max())
+        ambiguous = set((margin <= 4 * p_err).nonzero()[:, 0].tolist())
+        thresh, gap = None, float(margin.min())
+        check(len(ambiguous) <= 0.01 * len(margin), f'{len(ambiguous)} pixels near a class tie')
+    else:
+        p_cpu = torch.sigmoid(dc['scores'])
+        p_err = float((torch.sigmoid(dg['scores']) - p_cpu).abs().max())
+        thresh, gap = threshold_in_gap(p_cpu.numpy(), 500, 2048)
+        ambiguous = set()
+        check(gap > 4 * p_err, f'score gap {gap} too narrow for the card-cpu difference {p_err}')
     outs = {}
     for nms in (False, True):
+        t0 = time.perf_counter()
         oc = cpu_m.forward_padded(x, score_thresh=thresh, nms=nms)
+        cpu_s += time.perf_counter() - t0
         og = gpu_m.forward_padded(x.cuda(), score_thresh=thresh, nms=nms)
         outs[nms] = (oc, {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in og.items()})
     (pre_c, pre_g), (post_c, post_g) = outs[False], outs[True]
@@ -494,43 +564,54 @@ def phase_card_vs_cpu(rng):
     def pixels(o):
         return set(o['fg_index'][0][o['valid'][0]].tolist())
 
-    check(pixels(pre_c) == pixels(pre_g), 'pre-NMS valid sets differ')
+    pre_sym = pixels(pre_c) ^ pixels(pre_g)
+    check(pre_sym <= ambiguous, 'pre-NMS valid sets differ')
     sym = pixels(post_c) ^ pixels(post_g)
-    print(f'  threshold {thresh:.6f} (gap {gap:.2e}, score diff {p_err:.2e}): '
-          f'{len(pixels(pre_c))} valid before NMS on both; kept cpu {len(pixels(post_c))}, '
-          f'card {len(pixels(post_g))}, differing {len(sym)}', flush=True)
+    print(f'  threshold {thresh} (gap {gap:.2e}, score diff {p_err:.2e}, {len(ambiguous)} '
+          f'pixels near a class tie; CPU forwards {cpu_s:.1f} s): {len(pixels(pre_c))} valid '
+          f'before NMS on the CPU, {len(pre_sym)} on one side alone; kept cpu '
+          f'{len(pixels(post_c))}, card {len(pixels(post_g))}, differing {len(sym)}', flush=True)
     check(len(sym) <= 0.01 * len(pixels(post_c)), f'{len(sym)} kept boxes differ')
-    # contours per selected pixel: the orders may differ on near-equal scores
+    # contours and classes per pixel selected on both sides: the orders may
+    # differ on near-equal scores; the classes of pixels near a tie may differ
     cc, cg = pre_c['contours'][0], pre_g['contours'][0]
     ic = {p: i for i, p in enumerate(pre_c['fg_index'][0].tolist())}
-    sel = pre_g['valid'][0].nonzero()[:, 0].tolist()
-    diffs = torch.stack([(cg[i] - cc[ic[int(pre_g['fg_index'][0][i])]]).abs() for i in sel])
+    sel = [i for i in pre_g['valid'][0].nonzero()[:, 0].tolist()
+           if int(pre_g['fg_index'][0][i]) in pixels(pre_c)]
+    rows = [ic[int(pre_g['fg_index'][0][i])] for i in sel]
+    sure = [j for j, i in enumerate(sel) if int(pre_g['fg_index'][0][i]) not in ambiguous]
+    check(torch.equal(pre_g['classes'][0][sel][sure], pre_c['classes'][0][rows][sure]),
+          'classes differ')
+    diffs = torch.stack([(cg[i] - cc[j]).abs() for i, j in zip(sel, rows)])
     frac = float((diffs <= 1e-3).all(-1).float().mean())
-    print(f'  contours: {100 * frac:.2f}% of points within 1e-3 px, mean |diff| '
+    print(f'  classes equal (pixels near a tie aside); contours: {100 * frac:.2f}% of points '
+          f'within 1e-3 px, mean |diff| '
           f'{float(diffs.mean()):.2e} px, max {float(diffs.max()):.3f} px', flush=True)
     check(frac >= 0.99 and float(diffs.mean()) < 0.1, 'contours differ beyond the gates')
 
 
-def main_path(rng, card, errs, floor):
-    """Phase 5: full-width CpnU22 on 1024^2 tiles, fp32 batch 1 and bf16 batch 4."""
-    print('== phase 5: main path, CpnU22 (full width) on 1024^2 tiles', flush=True)
+def main_path(rng, card, errs, floor, title, build, tame=False,
+              runs=(('fp32', None, 1), ('bf16', torch.bfloat16, 4))):
+    """Phases 5 and 9: the model ``build(compute_dtype=...)`` makes on 1024^2
+    tiles in each of ``runs`` (name, compute dtype, batch)."""
+    print(f'== {title} on 1024^2 tiles', flush=True)
     torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
     torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's default for matmuls
     print('  fp32 convolutions in TF32 (cudnn.allow_tf32=True, the PyTorch default)', flush=True)
     configs = []
     sd = None
-    for name, dtype, batch in (('fp32', None, 1), ('bf16', torch.bfloat16, 4)):
-        m = models.CpnU22(in_channels=3, max_detections=2048, samples=32, compute_dtype=dtype)
+    for name, dtype, batch in runs:
+        m = build(compute_dtype=dtype)
         if sd is None:
-            sd = state_dict_from_jax(init_jax_variables(m, SEED))
+            sd = random_weights(m, tame)
         m.load_state_dict(sd, strict=True)
         x = torch.from_numpy(rng.rand(batch, TILE, TILE, 3).astype(np.float32)).cuda()
         # score threshold from this configuration's own scores: at least
         # 3072 foreground pixels per image, so the NMS sees 2048 valid boxes
+        # (with more than two classes the classes are the argmax and the
+        # threshold plays no part)
         probs = torch.sigmoid(m.forward_padded(x, nms=False)['dense_scores'].float())
-        q = torch.quantile(probs.reshape(batch, -1).cpu().double(),
-                           1 - 3072 / probs[0].numel(), dim=1)
-        configs.append((name, m, x, float(q.min())))
+        configs.append((name, m, x, threshold_above(probs, 3072)))
 
     for k in kernels.KERNELS:          # the main path's run: counts from 0
         k.launches = 0
@@ -655,7 +736,7 @@ def phase_tiled_card_vs_cpu(rng):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cpu_m = models.CpnU22(in_channels=3, device='cpu')
-    sd = state_dict_from_jax(init_jax_variables(cpu_m, SEED))    # phase 4's weights
+    sd = random_weights(cpu_m)    # phase 4's weights
     cpu_m.load_state_dict(sd, strict=True)
     gpu_m = models.CpnU22(in_channels=3)
     gpu_m.load_state_dict(sd, strict=True)
@@ -743,7 +824,6 @@ def phase_gigapixel(card, floor):
     print(f'  blob mosaics 16,384^2 and 8192^2 built in {time.perf_counter() - t0:.1f} s', flush=True)
     kw = dict(in_channels=1, max_detections=2048, samples=32)
     fp32 = models.CpnU22(**kw)
-    variables = init_jax_variables(fp32, SEED)
     # spread heads. scripts/bench_gigapixel.py multiplies the JAX package's
     # output layers by 300 (score) and 25 (Fourier); this init's fields are
     # far wider already, and those factors saturate the sigmoid and give
@@ -751,10 +831,7 @@ def phase_gigapixel(card, floor):
     # unsaturated scores and 8-px boxes, of which its NMS keeps 26%, about the
     # share of its candidates that the JAX package's 16,384^2 run kept
     # (236,877 of 441 x 2000).
-    head = variables['params']
-    head['score_head']['conv1']['kernel'] *= np.float32(0.25)
-    head['fourier_head']['conv1']['kernel'] *= np.float32(0.1)
-    sd = state_dict_from_jax(variables)
+    sd = random_weights(fp32, score=0.25, fourier=0.1)
     fp32.load_state_dict(sd, strict=True)
     bf16 = models.CpnU22(compute_dtype=torch.bfloat16, **kw)
     bf16.load_state_dict(sd, strict=True)
@@ -852,11 +929,53 @@ def phase_gigapixel(card, floor):
             (bc, vc, kc), (bs, vs, ks) = chunked_passes(boxes, scores, valid, t, chunk, tile, cap)
             time_sweep(f'stitch {label} per-chunk pass', bc, vc, kc, t, card, floor)
             time_sweep(f'stitch {label} cross-chunk pass', bs, vs, ks, t, card, floor)
+            for p in surv[:-1]:    # the cross-chunk passes of the earlier attempts, at their caps
+                _, (bs, vs, ks) = chunked_passes(boxes, scores, valid, t, chunk, tile, p['cap'])
+                time_sweep(f'stitch {label} cross-chunk pass at cap {p["cap"]}', bs, vs, ks, t,
+                           card, floor)
+                plain_ms = cuda_ms(lambda: _nms_sweep(bs, vs, t), 1, warmup=0)
+                print(f'  [{card}] plain _nms_sweep stitch {label} cross-chunk pass 1 x '
+                      f'{vs.shape[1]} (cap {p["cap"]}): {plain_ms:.3f} ms', flush=True)
         else:
             _, b, v = sort_by_score(boxes[None], scores[None], valid[None])
             time_sweep(f'stitch {label} exact pass', b, v, nms_sweep(b, v, t), t, card, floor)
         del flat, boxes, scores, valid
     return launches
+
+
+def phase_tiled_flagship(card):
+    """Phase 10: TiledInference of the flagship (bf16, batch 4) on a 2048^2
+    blob mosaic, tile 1024, stride 768."""
+    print('== phase 10: tiled inference, CpnResNeXt101UNet (full width and depth, bf16, batch '
+          '4), 2048^2 blob mosaic, tile 1024, stride 768', flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mosaic, stride = blob_mosaic(2 * TILE, TILE), 3 * TILE // 4
+    m = models.CpnResNeXt101UNet(in_channels=1, compute_dtype=torch.bfloat16, **FLAGSHIP)
+    # phase 7's spread of the Fourier head, for boxes of cell size
+    m.load_state_dict(random_weights(m, tame=True, fourier=0.1), strict=True)
+    tiled = TiledInference(m, tile_size=TILE, stride=stride, batch_size=4)
+    tiles = torch.from_numpy(tile_image(mosaic, TILE, stride)[0]).cuda()
+    # at most 2000 foreground pixels in every tile, so no tile is retried
+    highest = [torch.topk(torch.sigmoid(m.forward_padded(tiles[i:i + 4], nms=False)[
+        'dense_scores'].float()).flatten(1), 2001, dim=1).values[:, -1]
+        for i in range(0, len(tiles), 4)]
+    thresh = float(torch.cat(highest).max())
+    del tiles
+    check(0 < thresh < 1, f'threshold out of range: {thresh}')
+    tiled(mosaic, score_thresh=thresh)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = tiled(mosaic, score_thresh=thresh)
+    seconds = time.perf_counter() - t0
+    stage_line(card, f'2048^2 bf16 batch 4, threshold {thresh:.6f}', res, dict(tiled.stats),
+               seconds, torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(res['num_tiles'] == 9 and res['num_valid'] == len(res['boxes']) > 0
+          and not res['overflow'], '2048^2: tiles, detections or overflow')
+    check(res['contours'].shape[1:] == (32, 2) and all(
+        np.isfinite(res[k]).all() for k in ('contours', 'boxes', 'scores', 'fourier',
+                                            'locations')), '2048^2: bad results')
 
 
 def main():
@@ -884,10 +1003,28 @@ def main():
     rng = np.random.RandomState(SEED)
     errs = {}
     floor = phase_kernels(rng, card, errs)
-    phase_card_vs_cpu(rng)
-    launches, rec = main_path(rng, card, errs, floor)
+    phase_card_vs_cpu(rng, 'phase 4: CpnU22 (full width)',
+                      lambda **kw: models.CpnU22(in_channels=3, **kw))
+    launches, rec = main_path(rng, card, errs, floor, 'phase 5: main path, CpnU22 (full width)',
+                              lambda **kw: models.CpnU22(in_channels=3, max_detections=2048,
+                                                         samples=32, **kw))
     phase_tiled_card_vs_cpu(rng)
     launches_tiled = phase_gigapixel(card, floor)
+    phase_card_vs_cpu(rng, 'phase 8: CpnResNeXt101UNet (full width and depth)',
+                      lambda **kw: models.CpnResNeXt101UNet(in_channels=3, **FLAGSHIP, **kw),
+                      tame=True)
+    # K above the 64^2 score map's pixels: every foreground pixel is selected
+    phase_card_vs_cpu(rng, 'phase 8: CpnResNet18FPN, 3 classes',
+                      lambda **kw: models.CpnResNet18FPN(in_channels=3, classes=3,
+                                                         max_detections=4096, **kw), tame=True)
+    launches_resnet, _ = main_path(
+        rng, card, errs, floor, 'phase 9: the ResNet path, CpnResNeXt101UNet (full width and '
+        'depth)', lambda **kw: models.CpnResNeXt101UNet(in_channels=3, **FLAGSHIP, **kw),
+        tame=True)
+    main_path(rng, card, errs, floor, 'phase 9: CpnResNet18FPN, 3 classes',
+              lambda **kw: models.CpnResNet18FPN(in_channels=3, classes=3, **FLAGSHIP, **kw),
+              tame=True, runs=(('bf16', torch.bfloat16, 4),))
+    phase_tiled_flagship(card)
     check('jax' not in sys.modules and 'celldetection_tpu' not in sys.modules,
           'JAX or the JAX package was imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -895,6 +1032,7 @@ def main():
         'name': name, 'route': 'cuda', 'source': f'celldetection_tpu_torch/csrc/{SOURCES[name]}',
         'replaces': 'celldetection_tpu/kernels/nms_pallas.py:59',
         'launches': launches[name], 'launches_tiled': launches_tiled[name],
+        'launches_resnet': launches_resnet[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

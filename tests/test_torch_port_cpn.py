@@ -24,12 +24,14 @@ import os
 
 import jax
 import jax.numpy as jnp
+import flax
 import msgpack
 import numpy as np
 import torch
 from flax import serialization
 
 from celldetection_tpu import models as jmodels
+from celldetection_tpu.models import cpn as jcpn
 from celldetection_tpu.ops.boxes import box_iou
 from celldetection_tpu.util.torch_import import export_torch_state_dict
 from celldetection_tpu_torch import models as tmodels
@@ -78,21 +80,50 @@ def threshold_in_gap(probs, lo, hi):
     return float(mids[i]), float(gaps[i])
 
 
-def _slice_parity(backbone_kwargs, size, batch, capacity, seed):
-    kw = dict(in_channels=3, max_detections=capacity, samples=32, backbone_kwargs=backbone_kwargs)
-    pm = tmodels.CpnU22(device='cpu', **kw)
+def _slice_parity(name, backbone_kwargs, size, batch, capacity, seed, classes=2,
+                  scale_weights=None):
+    """The port's CPN ``name`` against the JAX package's on the same weights:
+    dense heads, valid sets before and after NMS, classes and contours.
+
+    ``scale_weights`` edits the JAX variables in place before both load them
+    (to keep a deep random network's scores off saturation). A ResNet body
+    is compared in its ``backbone_kwargs['fused_initial']`` layout.
+    """
+    kw = dict(in_channels=3, max_detections=capacity, samples=32, classes=classes,
+              backbone_kwargs=backbone_kwargs)
+    pm = tmodels.get_cpn(name)(device='cpu', **kw)
     variables = init_jax_variables(pm, seed)
     # shrink the score logits (random weights give 10-15 at full width, where
     # fp32 sigmoids saturate and leave no gap for a threshold)
     score_out = variables['params']['score_head']['conv1']
     score_out.update({k: v * np.float32(0.25) for k, v in score_out.items()})
-    pm.load_state_dict(state_dict_from_jax(variables), strict=True)
-    jm = jmodels.CpnU22(**kw)
+    if scale_weights is not None:
+        scale_weights(variables)
+    fused = bool((backbone_kwargs or {}).get('fused_initial', False))
+    pm.load_state_dict(state_dict_from_jax(variables, fused_initial=fused), strict=True)
+    jm = jmodels.get_cpn(name)(**kw)
     vj = jax.tree_util.tree_map(jnp.asarray, variables)
     x = np.random.RandomState(seed).rand(batch, size, size, 3).astype(np.float32)
+    # one program gives the JAX package's detections and, caught on their way
+    # through CPNCore, its dense heads; the score threshold is an argument, so
+    # a second threshold reuses the compiled program
+    def forward_j(v, x, t):
+        dense = {}
 
-    dense_j = {k: np.asarray(v) for k, v in jm.core.apply(vj, jnp.asarray(x), False).items()
-               if v is not None}
+        def catch_dense(call, args, kwargs, context):
+            out = call(*args, **kwargs)
+            if isinstance(context.module, jcpn.CPNCore) and context.method_name == '__call__':
+                dense.update(out)
+            return out
+
+        with flax.linen.intercept_methods(catch_dense):
+            out = jm.forward_padded(v, x, score_thresh=t, nms=True)
+        return dense, out
+
+    run_j = jax.jit(forward_j)
+
+    dense_j, out_j = run_j(vj, jnp.asarray(x), jnp.float32(0.5))
+    dense_j = {k: np.asarray(v) for k, v in dense_j.items() if v is not None}
     with torch.no_grad():
         dense_p = pm.core(torch.from_numpy(x))
     assert dense_p['uncertainty'] is None
@@ -100,14 +131,23 @@ def _slice_parity(backbone_kwargs, size, batch, capacity, seed):
         atol = 1e-4 * max(1., float(np.abs(ref).max()))
         np.testing.assert_allclose(dense_p[key].numpy(), ref, rtol=0, atol=atol, err_msg=key)
 
-    probs = 1 / (1 + np.exp(-dense_j['scores'].astype(np.float64)))
-    thresh, gap = threshold_in_gap(probs, capacity // 8, capacity // 2)
-    p_err = np.abs(torch.sigmoid(dense_p['scores']).numpy() - probs).max()
-    assert gap > 10 * p_err, (gap, p_err)
+    if classes > 2:
+        # classes are the argmax of the logits, the threshold plays no part:
+        # the two largest logits of every pixel must lie far apart
+        top2 = np.sort(dense_j['scores'], -1)[..., -2:]
+        gap = float((top2[..., 1] - top2[..., 0]).min())
+        err = float(np.abs(dense_p['scores'].numpy() - dense_j['scores']).max())
+        assert gap > 10 * err, (gap, err)
+        thresh = 0.5
+    else:
+        probs = 1 / (1 + np.exp(-dense_j['scores'].astype(np.float64)))
+        thresh, gap = threshold_in_gap(probs, capacity // 8, capacity // 2)
+        p_err = np.abs(torch.sigmoid(dense_p['scores']).numpy() - probs).max()
+        assert gap > 10 * p_err, (gap, p_err)
+        _, out_j = run_j(vj, jnp.asarray(x), jnp.float32(thresh))
 
-    out_j = jax.jit(lambda v, x: jm.forward_padded(v, x, score_thresh=thresh, nms=True))(
-        vj, jnp.asarray(x))
-    out_j = {k: np.asarray(out_j[k]) for k in ('valid', 'fg_index', 'fg_count', 'contours')}
+    out_j = {k: np.asarray(out_j[k]) for k in ('valid', 'fg_index', 'fg_count', 'contours',
+                                               'classes')}
     pre = pm.forward_padded(torch.from_numpy(x), score_thresh=thresh, nms=False)
     post = pm.forward_padded(torch.from_numpy(x), score_thresh=thresh)
     np.testing.assert_array_equal(post['fg_count'].numpy(), out_j['fg_count'])
@@ -126,6 +166,7 @@ def _slice_parity(backbone_kwargs, size, batch, capacity, seed):
         n_post += len(kept_p)
         slot_j = {p: s for s, p in enumerate(idx_j[:out_j['fg_count'][i]])}
         for s in np.nonzero(pre_valid)[0]:
+            assert pre['classes'][i, s] == out_j['classes'][i, slot_j[idx_p[s]]]
             diffs.append(np.abs(pre['contours'][i, s].numpy() - out_j['contours'][i, slot_j[idx_p[s]]]))
     assert 0 < n_post < n_pre
     diffs = np.stack(diffs)
@@ -134,11 +175,11 @@ def _slice_parity(backbone_kwargs, size, batch, capacity, seed):
 
 
 def test_cpn_u22_narrow_fp32_matches_jax():
-    _slice_parity(dict(base_channels=8), size=128, batch=2, capacity=512, seed=0)
+    _slice_parity('CpnU22', dict(base_channels=8), size=128, batch=2, capacity=512, seed=0)
 
 
 def test_cpn_u22_full_width_fp32_matches_jax():
-    _slice_parity(None, size=64, batch=1, capacity=256, seed=1)
+    _slice_parity('CpnU22', None, size=64, batch=1, capacity=256, seed=1)
 
 
 def test_cpn_u22_capacity_padding_matches_jax():
