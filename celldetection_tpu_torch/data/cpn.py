@@ -1,0 +1,567 @@
+"""CPN target encoding on the host (numpy and scipy, no cv2).
+
+Counterpart of ``celldetection_tpu/data/cpn.py``: ``efd`` (34-91),
+``fourier2contour`` (94-107), ``labels2contours`` (110-139),
+``contours2fourier`` (165-193), ``mask_labels_by_distance_`` (429-434),
+``labels2distances`` with its helpers (437-502) and ``CPNTargetGenerator``
+(505-615).
+
+The JAX package calls two functions of OpenCV here, and the port has its own
+numpy versions that give the same output, point for point and bit for bit:
+
+* :func:`outer_borders` is ``cv2.findContours(RETR_EXTERNAL,
+  CHAIN_APPROX_NONE)``: Suzuki-Abe border following of the outer borders,
+  8-connected, with OpenCV's raster scan, its marking of visited border
+  pixels and its rule for which outer borders count as external, so the
+  same start point, direction and number of contours come out.
+* :func:`chamfer_distance` is ``cv2.distanceTransform(DIST_L2, 3)``: the 3x3
+  chamfer with OpenCV's 16.16 fixed-point weights for 0.955 and 1.3693, one
+  forward and one backward pass, each row's recurrence solved as a running
+  minimum (``np.minimum.accumulate``).
+"""
+from collections import OrderedDict
+
+import numpy as np
+
+from ._regionprops import regionprops
+from .misc import resample_contours
+from .segmentation import filter_instances_
+
+__all__ = ['CPNTargetGenerator', 'efd', 'fourier2contour', 'labels2contours',
+           'contours2fourier', 'mask_labels_by_distance_', 'labels2distances',
+           'outer_borders', 'chamfer_distance']
+
+
+def efd(contour, order: int = 10, epsilon: float = 1e-6, autoclose: bool = True):
+    """Elliptic Fourier descriptor (Kuhl and Giardina) of closed 2d contours.
+
+    Args:
+        contour: ``[..., num_points, 2]``, or an object array of contours of
+            different lengths (each processed alone).
+        order: Descriptor order; 1 gives ellipses.
+        epsilon: Guards zero-length segments.
+        autoclose: Close contours whose end points differ.
+
+    Returns:
+        ``(coefficients [..., order, 4] as (a, b, c, d), locations [..., 2])``:
+        the first contour point plus the DC terms A0, C0.
+    """
+    if isinstance(contour, np.ndarray) and contour.dtype == object:
+        results = [efd(c, order=order, epsilon=epsilon) for c in contour]
+        return np.array([r[0] for r in results]), np.array([r[1] for r in results])
+
+    contour = np.asarray(contour, dtype=float)
+    if autoclose and not np.allclose(contour[..., 0, :], contour[..., -1, :]):
+        contour = np.concatenate((contour, contour[..., :1, :]), axis=-2)
+    elif not np.allclose(contour[..., 0, :], contour[..., -1, :]):
+        raise ValueError('contours must be closed (first point == last point)')
+
+    dxy = np.diff(contour, axis=-2)                          # (..., p, 2)
+    dt = np.sqrt(np.sum(np.square(dxy), axis=-1)) + epsilon  # (..., p)
+    t = np.concatenate([np.zeros(dt.shape[:-1] + (1,)), np.cumsum(dt, axis=-1)], -1)
+    T = t[..., -1:]                                          # total arc length
+
+    phi = (2 * np.pi) * t / T                                # (..., p + 1)
+    orders = np.arange(1, order + 1, dtype=phi.dtype)
+    const = T / (2. * np.square(orders) * np.square(np.pi))  # T / (2 k^2 pi^2)
+    phi_k = phi[..., None, :] * orders[..., None]            # (..., order, p + 1)
+    d_cos = np.cos(phi_k[..., 1:]) - np.cos(phi_k[..., :-1])
+    d_sin = np.sin(phi_k[..., 1:]) - np.sin(phi_k[..., :-1])
+
+    vx = (dxy[..., 0] / dt)[..., None, :]
+    vy = (dxy[..., 1] / dt)[..., None, :]
+    coefficients = np.stack([
+        const * np.sum(vx * d_cos, axis=-1),                 # a_k
+        const * np.sum(vx * d_sin, axis=-1),                 # b_k
+        const * np.sum(vy * d_cos, axis=-1),                 # c_k
+        const * np.sum(vy * d_sin, axis=-1),                 # d_k
+    ], axis=-1)
+
+    # DC terms A0 and C0 relative to the first contour point
+    xi = np.cumsum(dxy[..., 0], axis=-1) - (dxy[..., 0] / dt) * t[..., 1:]
+    delta = np.cumsum(dxy[..., 1], axis=-1) - (dxy[..., 1] / dt) * t[..., 1:]
+    t_sq_diff = np.diff(t ** 2, axis=-1)
+    a0 = np.sum((dxy[..., 0] / (2 * dt)) * t_sq_diff + xi * dt, axis=-1) / T[..., 0]
+    c0 = np.sum((dxy[..., 1] / (2 * dt)) * t_sq_diff + delta * dt, axis=-1) / T[..., 0]
+    locations = np.stack((contour[..., 0, 0] + a0, contour[..., 0, 1] + c0), axis=-1)
+    return np.array(coefficients), locations
+
+
+def fourier2contour(fourier: np.ndarray, locations: np.ndarray, samples: int = 64,
+                    sampling=None):
+    """Numpy inverse EFD: ``[..., order, 4]`` coefficients → ``[..., samples, 2]`` contours."""
+    order = fourier.shape[-2]
+    if sampling is None:
+        sampling = np.linspace(0, 1.0, samples)
+    samples = sampling.shape[-1]
+    sampling = sampling[..., None, :]
+    c = 2 * np.pi * np.arange(1, order + 1)[..., None] * sampling
+    c_cos, c_sin = np.cos(c), np.sin(c)
+    con = np.zeros(fourier.shape[:-2] + (samples, 2))
+    con += locations[..., None, :]
+    con += (fourier[..., None, (1, 3)] * c_sin[..., None]).sum(-3)
+    con += (fourier[..., None, (0, 2)] * c_cos[..., None]).sum(-3)
+    return con
+
+
+# -- outer borders (cv2.findContours, RETR_EXTERNAL, CHAIN_APPROX_NONE) ------
+
+# Freeman codes 0..7 as (dy, dx), counter-clockwise from "right" in image
+# coordinates (OpenCV's CV_INIT_3X3_DELTAS and icvCodeDeltas); the table
+# repeats so that a search may run past code 7 without a modulo.
+_STEPS = ((0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1), (1, 0), (1, 1)) * 2
+_VISITED = 2              # OpenCV's nbd of a border pixel once visited
+_VISITED_RIGHT = -126     # nbd | -128 (int8): visited, and its right neighbour is background
+
+
+def _follow_border(img: np.ndarray, y0: int, x0: int) -> list:
+    """Trace the outer border that starts at ``(y0, x0)`` of the padded int8
+    image ``img`` (OpenCV's ``icvFetchContour``), marking its pixels in place.
+
+    Returns the border's ``(x, y)`` points in visiting order.
+    """
+    s_end = s = 4                               # outer border: the search starts at "left"
+    while True:
+        s = (s - 1) & 7
+        y1, x1 = y0 + _STEPS[s][0], x0 + _STEPS[s][1]
+        if img[y1, x1] != 0 or s == s_end:
+            break
+    if s == s_end:                              # a single pixel (its left neighbour is 0)
+        img[y0, x0] = _VISITED_RIGHT
+        return [(x0, y0)]
+    points = []
+    y3, x3 = y0, x0
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            y4, x4 = y3 + _STEPS[s][0], x3 + _STEPS[s][1]
+            if img[y4, x4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:                     # the search passed the right neighbour
+            img[y3, x3] = _VISITED_RIGHT
+        elif img[y3, x3] == 1:
+            img[y3, x3] = _VISITED
+        points.append((x3, y3))
+        if y4 == y0 and x4 == x0 and y3 == y1 and x3 == x1:
+            return points
+        y3, x3 = y4, x4
+        s = (s + 4) & 7
+
+
+def _scan_borders(img: np.ndarray) -> list:
+    """OpenCV's raster scan for external outer borders over the padded int8
+    image ``img`` (marked in place); returns each border's points."""
+    h, width = img.shape[0] - 2, img.shape[1] - 1
+    borders = []
+    for y in range(1, h + 1):
+        row = img[y]
+        x, prev, lnbd = 1, 0, 0                 # lnbd: the column of the last border met
+        while True:
+            run = np.flatnonzero(row[x:width] != prev)   # skip the run equal to prev
+            if not run.size:
+                break
+            x += int(run[0])
+            p = int(row[x])
+            if prev == 0 and p == 1:            # an outer border starts here
+                if row[lnbd] <= 0:              # not inside a border already met
+                    borders.append(_follow_border(img, y, x))
+                    prev = int(row[x])          # the scan goes on past the marked start
+                    x += 1
+                    continue
+            elif p == 0 and prev >= 1 and prev & -2:   # a hole starts (not followed)
+                lnbd = x - 1
+            prev = p
+            if prev & -2:
+                lnbd = x
+            x += 1
+    return borders
+
+
+def outer_borders(mask: np.ndarray, offset=(0, 0)) -> list:
+    """The external outer borders of a binary image, as ``cv2.findContours``
+    with ``RETR_EXTERNAL`` and ``CHAIN_APPROX_NONE`` gives them.
+
+    Args:
+        mask: ``[h, w]``; non-zero is foreground.
+        offset: ``(x, y)`` added to every point.
+
+    Returns:
+        A list of ``int32 [n, 1, 2]`` arrays of ``(x, y)`` points, in OpenCV's
+        order: the raster scan meets each border at its first pixel, the
+        border is followed from there, and the list holds the borders last
+        found first.
+    """
+    h, w = mask.shape
+    img = np.zeros((h + 2, w + 2), np.int8)     # OpenCV pads by one background pixel
+    img[1:-1, 1:-1] = mask != 0
+    starts = (img[:, 1:] == 1) & (img[:, :-1] == 0)
+    if not starts.any():
+        return []
+    # The common case, one border: the scan meets the first foreground pixel
+    # first; if no unvisited pixel with background on its left remains after
+    # following that border, no other border can start, and the scan is done.
+    y0, x0 = divmod(int(np.argmax(starts)), w + 1)
+    traced = img.copy()
+    borders = [_follow_border(traced, y0, x0 + 1)]
+    if ((traced[:, 1:] == 1) & (traced[:, :-1] == 0)).any():
+        borders = _scan_borders(img)
+    shift = np.asarray((offset[0] - 1, offset[1] - 1), np.int32)
+    return [(np.asarray(b, np.int32) + shift)[:, None, :] for b in borders[::-1]]
+
+
+def labels2contours(labels: np.ndarray, flag_fragmented_inplace: bool = False,
+                    raise_fragmented: bool = True, constant: int = -1) -> dict:
+    """Label image ``[h, w]`` or ``[h, w, c]`` → ``{label: int32 [n, 1, 2] contour}``.
+
+    Each instance's outer border is traced in its bounding-box crop
+    (:func:`outer_borders`). A one-point contour is repeated to length 2. An
+    instance with more than one external border is fragmented: it is set to
+    ``constant`` in ``labels`` (``flag_fragmented_inplace``), raises
+    (``raise_fragmented``) or is left out.
+    """
+    if labels.ndim == 2:
+        labels = labels[..., None]
+    crops = []
+    contours = OrderedDict()
+    for channel in np.split(labels, labels.shape[2], 2):
+        crops += [(p.label, p.image, *p.bbox[:2]) for p in regionprops(channel[..., 0])]
+    for label, crop, oy, ox in crops:
+        c = outer_borders(crop, offset=(ox, oy))
+        if len(c) != 1:
+            if flag_fragmented_inplace:
+                labels[labels == label] = constant
+            elif raise_fragmented:
+                raise ValueError('Object labeled with multiple connected components.')
+            continue
+        c, = c
+        if len(c) == 1:
+            c = np.concatenate((c, c), axis=0)  # min length 2
+        contours[label] = c
+    if labels.shape[2] > 1:
+        return OrderedDict(sorted(contours.items()))
+    return contours
+
+
+def contours2fourier(contours: dict, order: int = 5, dtype=np.float32, batched: bool = True):
+    """Per-label EFD into dense ``(max_label, order, 4)`` and ``(max_label, 2)`` arrays.
+
+    ``batched`` pads all contours (closed, last point repeated: the repeated
+    segments have about zero arc length and vanish from the integrals) and
+    computes every descriptor in one vectorised pass.
+    """
+    max_label = int(np.max(list(contours.keys()))) if len(contours) else 0
+    fouriers = np.zeros((max_label, order, 4), dtype=dtype)
+    locations = np.zeros((max_label, 2), dtype=dtype)
+    if not len(contours):
+        return fouriers, locations
+    items = [(k, (c.squeeze(1) if c.ndim == 3 else c)) for k, c in contours.items()]
+    if batched and len(items) > 1:
+        closed = [np.concatenate([c, c[:1]], 0).astype(float) for _, c in items]
+        p = max(len(c) for c in closed)
+        batch = np.stack([np.concatenate([c, np.repeat(c[-1:], p - len(c), 0)], 0)
+                          for c in closed])
+        coeffs, locs = efd(batch, order, autoclose=False)
+        for i, (key, _) in enumerate(items):
+            fouriers[key - 1] = coeffs[i]
+            locations[key - 1] = locs[i]
+    else:
+        for key, contour in items:
+            fourier, location = efd(contour, order)
+            fouriers[key - 1] = fourier
+            locations[key - 1] = location
+    return fouriers, locations
+
+
+# -- distances (cv2.distanceTransform, DIST_L2, mask 3) -----------------------
+
+_HV = np.float32(0.955)                     # OpenCV's 3x3 weights for DIST_L2
+_DIAG = np.float32(1.3693)
+_FAR = np.float32(np.finfo(np.float32).max)  # beyond the image; sums saturate there
+_LANES = 4
+_STEP = np.array([np.float32(k * np.float64(_HV)) for k in range(_LANES + 1)])   # k a
+
+
+def _relax(t: np.ndarray):
+    """In place along the last axis: ``t[j] = min(t[j], t[j-1] + a)`` in
+    float32, in order, as one sequential left-to-right pass computes it.
+
+    Each round moves every chain one pixel on; the rounds stop when none
+    improves (float addition is monotone, so the fixed point is the
+    sequential result, rounding included).
+    """
+    while t.shape[-1] > 1:
+        c = t[..., :-1] + _HV
+        if not (c < t[..., 1:]).any():
+            return
+        np.minimum(t[..., 1:], c, out=t[..., 1:])
+
+
+def _forward_row_blocks(u: np.ndarray, bg: np.ndarray):
+    """One forward row as OpenCV 5 computes it between its first and last
+    rows, in place: columns 0-3 and the tail sequentially, and every block
+    of four columns from 4 on that ends before the last column at once.
+
+    In a block, column ``k`` takes the minimum of its value from the row
+    above, ``a`` times its distance to the nearest background column left of
+    it in the block, and the column before the block plus ``(k + 1) a``
+    (the constants rounded once). Values from the row above are not carried
+    sideways inside a block: in exact arithmetic they never win there, but
+    in float32 a tie of two paths can round either way.
+    """
+    w = u.shape[-1]
+    nb = max(0, (w - 1 - _LANES) // _LANES)
+    if nb == 0:
+        _relax(u)
+        return
+    _relax(u[..., :_LANES])
+    end = _LANES * (nb + 1)
+    blk = u[..., _LANES:end].reshape(u.shape[:-1] + (nb, _LANES))
+    lanes = np.arange(_LANES)
+    last_bg = np.maximum.accumulate(np.where(bg[..., _LANES:end].reshape(blk.shape), lanes, -1),
+                                    axis=-1)
+    prev_bg = np.concatenate([np.full(last_bg.shape[:-1] + (1,), -1), last_bg[..., :-1]], -1)
+    base = np.where(prev_bg >= 0, np.minimum(blk, _STEP[lanes - prev_bg]), blk)
+    fg = ~bg[..., _LANES:end].reshape(blk.shape)
+    # carries: each block's last column, a min-plus chain over blocks with step 4 a
+    carry = np.concatenate([u[..., _LANES - 1:_LANES], np.where(fg[..., -1], base[..., -1], 0)],
+                           -1)
+    while True:
+        nxt = np.where(fg[..., -1], np.minimum(base[..., -1], carry[..., :-1] + _STEP[_LANES]), 0)
+        if np.array_equal(nxt, carry[..., 1:]):
+            break
+        carry[..., 1:] = nxt
+    out = np.where(fg, np.minimum(base, carry[..., :-1, None] + _STEP[1:]), 0)
+    u[..., _LANES:end] = out.reshape(u.shape[:-1] + (nb * _LANES,))
+    if end < w:
+        np.minimum(u[..., end], u[..., end - 1] + _HV, out=u[..., end])
+        _relax(u[..., end:])
+
+
+def chamfer_distance(mask: np.ndarray) -> np.ndarray:
+    """``cv2.distanceTransform(mask, DIST_L2, 3)`` of ``[..., h, w]`` masks
+    (OpenCV 5): the float32 distance of every non-zero pixel to the nearest
+    zero pixel by the 3x3 chamfer.
+
+    Two passes in float32: forward, top-down and left to right, with the
+    neighbours up-left + b, up + a, up-right + b and left + a; backward,
+    bottom-up and right to left, with down-right, down, down-left and right,
+    for pixels above a. The forward pass of the rows between the first and
+    the last is OpenCV's vectorised one (:func:`_forward_row_blocks`).
+    Pixels beyond the image count as infinitely far (a mask without a zero
+    gives float32's largest value). Leading axes are independent images.
+    """
+    fg = np.asarray(mask) != 0
+    h, w = fg.shape[-2:]
+    t = np.empty(fg.shape, np.float32)
+    edge = np.full(fg.shape[:-2] + (w + 2,), _FAR, np.float32)
+    above = edge.copy()
+    for i in range(h):
+        u = np.minimum(np.minimum(above[..., :-2], above[..., 2:]) + _DIAG,
+                       above[..., 1:-1] + _HV)
+        bg = ~fg[..., i, :]
+        u[bg] = 0
+        if 0 < i < h - 1:
+            _forward_row_blocks(u, bg)
+        else:
+            _relax(u)
+        t[..., i, :] = above[..., 1:-1] = u
+    below = edge
+    for i in range(h - 1, -1, -1):
+        f = t[..., i, :]
+        v = np.minimum(np.minimum(below[..., :-2], below[..., 2:]) + _DIAG,
+                       below[..., 1:-1] + _HV)
+        u = np.where(f > _HV, np.minimum(f, v), f)
+        _relax(u[..., ::-1])
+        t[..., i, :] = below[..., 1:-1] = u
+    return t
+
+
+def mask_labels_by_distance_(labels: np.ndarray, distances: np.ndarray, max_bg_dist: float,
+                             min_fg_dist: float):
+    """Inplace: the background ring → 0, the uncertain ring → -1 (left out of the loss)."""
+    fg = np.any(labels > 0, axis=2)
+    labels[fg & (distances <= max_bg_dist)] = 0
+    labels[(distances > max_bg_dist) & (distances < min_fg_dist)] = -1
+
+
+def _iter_instance_slices(channel: np.ndarray):
+    """Yield ``(label_value, bbox_slices)`` for every instance in one label channel."""
+    from scipy import ndimage
+    for value, slices in enumerate(ndimage.find_objects(np.maximum(channel, 0)), 1):
+        if slices is not None:
+            yield value, slices
+
+
+def _labels2distances_fg(labels, single_support):
+    """One transform of the whole (non-overlapping) foreground, normalised per instance."""
+    dist = chamfer_distance(single_support)
+    if labels.size:
+        flat = labels.max(-1) if labels.ndim == 3 else labels
+        for value, slices in _iter_instance_slices(flat):
+            inst = flat[slices] == value
+            view = dist[slices]
+            if inst.any():
+                view[inst] /= max(float(view[inst].max()), 1e-6)
+    return dist
+
+
+def _labels2distances_instance(labels, single_support, protected_size=36):
+    """Independent per-instance transforms, so touching instances keep separate peaks.
+
+    Each instance's crop, padded by one background pixel, is transformed
+    and normalised by its peak, unless it has at most ``protected_size``
+    pixels: those keep their raw (clipped) distances, since normalising a
+    2-px-wide object would raise its whole area to about 1 and erase the
+    fg/bg bands. All crops go through one :func:`chamfer_distance` call,
+    stacked with zero padding (background beyond a crop's own padding does
+    not change its distances).
+    """
+    out = np.zeros(labels.shape[:2], dtype='float32')
+    items = []
+    for channel in np.moveaxis(labels, -1, 0):
+        for value, slices in _iter_instance_slices(channel):
+            inst = (channel[slices] == value) & single_support[slices]
+            if inst.any():
+                items.append((slices, inst))
+    if not items:
+        return out
+    stack = np.zeros((len(items), max(i.shape[0] for _, i in items) + 2,
+                      max(i.shape[1] for _, i in items) + 2), bool)
+    for n, (_, inst) in enumerate(items):
+        stack[n, 1:inst.shape[0] + 1, 1:inst.shape[1] + 1] = inst
+    dist = chamfer_distance(stack)
+    for n, (slices, inst) in enumerate(items):
+        d = dist[n, 1:inst.shape[0] + 1, 1:inst.shape[1] + 1]
+        peak = float(d.max())
+        if peak > 0 and np.count_nonzero(inst) > protected_size:
+            d = d / np.float32(peak)
+        out[slices][inst] = np.minimum(d, 1.0)[inst]
+    return out
+
+
+def labels2distances(labels: np.ndarray, overlap_zero: bool = True, per_instance: bool = True,
+                     **kwargs):
+    """Per-instance normalised distance transform of ``[h, w, c]`` labels.
+
+    Returns ``(distances, labels)``: distances in [0, 1] with instance
+    centres at 1, and a copy of the labels with overlaps set to -1 when
+    ``overlap_zero``. The transform is :func:`chamfer_distance`.
+    """
+    labels = labels.copy()
+    support = np.count_nonzero(labels > 0, axis=2)
+    if overlap_zero:
+        labels[support > 1] = -1
+        single = support == 1
+    else:
+        single = support > 0
+    fn = _labels2distances_instance if per_instance else _labels2distances_fg
+    return np.clip(fn(labels, single, **kwargs), 0., 1.), labels
+
+
+class CPNTargetGenerator:
+    """Training targets of one label image.
+
+    ``feed(labels)`` filters instances, extracts contours (which may flag
+    fragmented instances), computes the distance transform and the fg/bg
+    masking. The derived quantities (Fourier coefficients, locations,
+    sampled and resampled contours) are built on demand by the ``_stage_*``
+    methods behind one memo, so each runs at most once per fed image.
+    """
+
+    def __init__(self, samples: int, order: int, random_sampling: bool = True,
+                 remove_partials: bool = False, min_fg_dist: float = .75, max_bg_dist: float = .5,
+                 flag_fragmented: bool = True, flag_fragmented_constant: int = -1,
+                 rng: np.random.RandomState = None):
+        self.samples = samples
+        self.order = order
+        self.random_sampling = random_sampling
+        self.remove_partials = remove_partials
+        self.min_fg_dist = min_fg_dist
+        self.max_bg_dist = max_bg_dist
+        self.flag_fragmented = flag_fragmented
+        self.flag_fragmented_constant = flag_fragmented_constant
+        self.rng = rng or np.random
+        self.labels = self.labels_red = self.distances = None
+        self._memo = {}
+
+    def _stage(self, name: str):
+        if name not in self._memo:
+            self._memo[name] = getattr(self, f'_stage_{name}')()
+        return self._memo[name]
+
+    def feed(self, labels: np.ndarray, border: int = 1, min_area: int = 1, max_area: int = None,
+             **kwargs):
+        """Feed a label image (it may be modified in place)."""
+        self._memo.clear()
+        self.labels = labels if labels.ndim == 3 else labels[..., None]
+        filter_instances_(self.labels, partials=self.remove_partials, partials_border=border,
+                          min_area=min_area, max_area=max_area, constant=-1, continuous=True)
+        # contour extraction may flag fragmented instances in self.labels, so
+        # it runs before the distance transform
+        self._stage('contours')
+        self.distances, self.labels_red = labels2distances(self.labels, **kwargs)
+        mask_labels_by_distance_(self.labels_red, self.distances, self.max_bg_dist, self.min_fg_dist)
+
+    def _stage_sampling(self):
+        if self.random_sampling:
+            return np.sort(self.rng.uniform(0., 1., self.samples))
+        return np.linspace(0., 1., self.samples)
+
+    def _stage_contours(self):
+        return labels2contours(self.labels, flag_fragmented_inplace=self.flag_fragmented,
+                               constant=self.flag_fragmented_constant, raise_fragmented=False)
+
+    def _stage_efd(self):
+        return contours2fourier(self._stage('contours'), order=self.order)
+
+    def _stage_sampled_contours(self):
+        fourier, locations = self._stage('efd')
+        return fourier2contour(fourier, locations, samples=self.samples, sampling=self.sampling)
+
+    def _stage_resampled_contours(self):
+        contours = self._stage('contours')
+        num = int(max(contours.keys(), default=0))
+        out = np.zeros((num, self.samples, 2))
+        for label, contour in contours.items():
+            out[label - 1] = resample_contours(contour.reshape(-1, 2), self.samples)
+        return out
+
+    @property
+    def reduced_labels(self) -> np.ndarray:
+        if self.flag_fragmented:
+            self._stage('contours')   # may drop fragmented instances first
+        return self.labels_red.max(2)
+
+    @property
+    def sampling(self) -> np.ndarray:
+        return self._stage('sampling')
+
+    @property
+    def contours(self) -> dict:
+        return self._stage('contours')
+
+    @property
+    def fourier(self) -> np.ndarray:
+        return self._stage('efd')[0]
+
+    @property
+    def locations(self) -> np.ndarray:
+        return self._stage('efd')[1]
+
+    @property
+    def sampled_contours(self) -> np.ndarray:
+        """``[num_contours, samples, 2]`` decoded from the EFD targets."""
+        return self._stage('sampled_contours')
+
+    @property
+    def resampled_contours(self) -> np.ndarray:
+        """The ground-truth contours resampled at equal arc length (hires targets)."""
+        return self._stage('resampled_contours')
+
+    @property
+    def sampled_sizes(self) -> np.ndarray:
+        """``[num_contours, 2]`` extent of each sampled contour."""
+        c = self.sampled_contours
+        return c.max(1) - c.min(1)

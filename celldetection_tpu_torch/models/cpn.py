@@ -1,9 +1,10 @@
-"""Contour Proposal Network, single-tile inference (PyTorch).
+"""Contour Proposal Network: inference and training (PyTorch).
 
 Counterpart of ``celldetection_tpu/models/cpn.py``: ``CPNCore`` (69-187),
 ``_gather_hw`` (194-211), ``local_refinement`` (214-253), ``cpn_decode``
-(256-356, inference branch) and ``apply_detection_offsets`` (359-372),
-``CPN`` (508-579) with ``forward_padded`` (614-693, no targets, no loss),
+(256-356) and ``apply_detection_offsets`` (359-372), ``DEFAULT_WEIGHTS`` and
+``cpn_compute_loss`` (375-478), ``CPN`` (508-579) with ``forward_padded``
+(614-693, with and without targets),
 ``prepare_inputs`` (708-739), ``__call__`` (741-783, here ``forward``, which
 sends inputs above ``max_imsize`` through
 :class:`..parallel.tiles.TiledInference`) and ``detach`` (785-806),
@@ -16,6 +17,10 @@ As in the JAX package every selection is capacity-padded: per image the top
 and NMS as fixed ``[B, K, ...]`` tensors with a ``valid`` mask; ragged
 per-image results appear only in :meth:`CPN.detach`. The top-K is a stable
 descending sort, so ties keep the lower pixel index first, as ``lax.top_k``.
+
+Training runs in fp32 with the module in train mode: batch statistics in
+the norms, dropout in the heads, the foreground from the target labels and a
+random selection priority drawn from the caller's ``torch.Generator``.
 """
 import warnings
 from typing import Dict, Optional, Tuple
@@ -24,16 +29,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.commons import interpolate_nchw, process_scores
-from ..ops.cpn import (batched_box_nms, fouriers2contours, rel_location2abs_location,
-                       scale_contours, scale_fourier)
+from ..ops import loss as L
+from ..ops.commons import clip, downsample_labels, interpolate_nchw, process_scores
+from ..ops.cpn import (batched_box_nms, fouriers2contours, order_weighting,
+                       rel_location2abs_location, scale_contours, scale_fourier)
 from ..util.device import resolve_device
 from . import fpn as fpn_lib
 from . import unet as unet_lib
-from .commons import FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
+from .commons import Dropout2d, FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
 
-__all__ = ['CPNCore', 'CPN', 'cpn_decode', 'apply_detection_offsets', 'local_refinement',
-           'get_cpn', 'models_by_name', 'CpnU22', 'CpnU12']
+__all__ = ['CPNCore', 'CPN', 'cpn_decode', 'cpn_compute_loss', 'DEFAULT_WEIGHTS',
+           'apply_detection_offsets', 'local_refinement', 'get_cpn', 'models_by_name', 'CpnU22',
+           'CpnU12']
 
 
 class CPNCore(nn.Module):
@@ -128,7 +135,8 @@ def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops
 
     Each loop rounds half to even, clamps to the image, truncates to integer
     pixels and adds the field's offset there; the field may be bf16, the
-    positions stay fp32. Returns ``(refined, all_iterations)``.
+    positions stay fp32. The rounded positions carry no gradient (JAX's
+    ``stop_gradient``); the offsets do. Returns ``(refined, all_iterations)``.
     """
     if num_buckets != 1:
         raise NotImplementedError('refinement buckets > 1 are not ported yet')
@@ -136,7 +144,7 @@ def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops
     all_out = []
     det = contours
     for _ in range(num_loops):
-        det = torch.round(det)
+        det = torch.round(det).detach()
         det = torch.stack([det[..., 0].clamp(0, w - 1), det[..., 1].clamp(0, h - 1)], -1)
         flat = det[..., 1].long() * w + det[..., 0].long()        # [B, K, S]
         b, k, s = flat.shape
@@ -149,30 +157,40 @@ def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops
 def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, order: int,
                samples: int, score_channels: int, score_thresh, max_detections: int,
                refinement_iterations: int, refinement_buckets: int,
+               sampling: Optional[torch.Tensor] = None, labels: Optional[torch.Tensor] = None,
+               priority: Optional[torch.Tensor] = None,
                scores_lower_bound=None, scores_upper_bound=None,
                offsets: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Dense head outputs → capacity-padded detections (no NMS), inference branch.
+    """Dense head outputs → capacity-padded detections (no NMS).
 
     Args:
+        sampling: Optional ``[B, S]`` contour sampling (training targets).
+        labels: Optional ``[B, H', W']`` target labels: the foreground comes
+            from them (max-pooled to the score map), not from the scores.
+        priority: Optional ``[B, h, w]`` selection priority (training:
+            random); the selection score by default.
         offsets: Optional ``[B, 2]`` float32 xy offsets (tiles of a mosaic):
             added after the clamping and the boxes, so clamping stays local.
 
     Returns ``contours [B,K,S,2], boxes [B,K,4], scores [B,K], classes [B,K],
     locations [B,K,2], fourier [B,K,order,4], contour_proposals,
     all_refined (tuple), box_uncertainties (None), valid [B,K], fg_index
-    [B,K], fg_count [B], dense_scores``.
+    [B,K], fg_labels [B,K], fg_count [B], dense_scores, dense_labels``.
     """
     raw_scores = dense['scores']
     b_dim, h, w = raw_scores.shape[:3]
     scores, classes = process_scores(raw_scores, score_channels, score_thresh,
                                      scores_lower_bound, scores_upper_bound)
     fourier = dense['fourier'].reshape(b_dim, h, w, -1, 4)[..., :order, :]
-    fg_mask = classes > 0
+    labels = classes if labels is None else downsample_labels(labels.float(), (h, w))
+    fg_mask = labels > 0
     if score_channels in (1, 2):
         sel_score = scores[..., 0]
     else:
         sel_score = torch.gather(scores, -1, classes[..., None].long())[..., 0]
-    flat_priority = torch.where(fg_mask, sel_score, -torch.inf).reshape(b_dim, h * w)
+    if priority is None:
+        priority = sel_score
+    flat_priority = torch.where(fg_mask, priority, -torch.inf).reshape(b_dim, h * w)
     # top-K as a stable descending sort: ties (saturated sigmoids) keep the
     # lower index first, as lax.top_k; with fewer than K pixels, pad invalid
     k = min(max_detections, h * w)
@@ -190,7 +208,11 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
     sel_locations = _gather_hw(locations_abs, top_idx)           # [B, K, 2]
     sel_classes = _gather_hw(classes[..., None], top_idx)[..., 0]
     sel_scores = _gather_hw(sel_score[..., None], top_idx)[..., 0]
-    proposals, _ = fouriers2contours(sel_fourier, sel_locations, samples=samples)
+    sel_labels = _gather_hw(labels[..., None].float(), top_idx)[..., 0]
+    if sampling is not None:
+        sampling = sampling[:, None, :].expand(b_dim, max_detections, sampling.shape[-1])
+    proposals, _ = fouriers2contours(sel_fourier, sel_locations, samples=samples,
+                                     sampling=sampling)
 
     actual_size = (h, w)
     proposals = scale_contours(actual_size, input_size, proposals)
@@ -202,14 +224,15 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
                                                  refinement_buckets, input_size)
     else:
         contours, all_refined = proposals, [proposals]
-    all_refined = [torch.stack([c[..., 0].clamp(0, input_size[1] - 1),
-                                c[..., 1].clamp(0, input_size[0] - 1)], -1) for c in all_refined]
+    all_refined = [torch.stack([clip(c[..., 0], 0, input_size[1] - 1),
+                                clip(c[..., 1], 0, input_size[0] - 1)], -1) for c in all_refined]
     contours = all_refined[-1]
     boxes = torch.cat((contours.amin(-2), contours.amax(-2)), -1)
     out = dict(contours=contours, boxes=boxes, scores=sel_scores, classes=sel_classes,
                locations=sel_locations, fourier=sel_fourier, contour_proposals=proposals,
                all_refined=tuple(all_refined), box_uncertainties=None, valid=valid,
-               fg_index=top_idx, fg_count=fg_count, dense_scores=raw_scores)
+               fg_index=top_idx, fg_labels=sel_labels, fg_count=fg_count,
+               dense_scores=raw_scores, dense_labels=labels)
     if offsets is not None:
         out = apply_detection_offsets(out, offsets)
     return out
@@ -227,16 +250,121 @@ def apply_detection_offsets(decoded: Dict[str, torch.Tensor], offsets: torch.Ten
     return out
 
 
+# Loss weights of the reference CPN
+DEFAULT_WEIGHTS = {
+    'fourier': 1., 'location': 1., 'contour': 3., 'score_bg': 1., 'score_fg': 1.,
+    'refinement': 1., 'boxes': .88, 'iou': 1., 'uncertainty': 1.,
+}
+
+
+def cpn_compute_loss(decoded: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor], *,
+                     score_channels: int, order_weights=1., weights: Dict[str, float] = None,
+                     uncertainty_factor: float = 7., uncertainty_head: bool = False,
+                     iou_loss_enabled: bool = True, box_loss_enabled: bool = False,
+                     refinement_enabled: bool = True):
+    """CPN multi-objective loss on capacity-padded selections → ``(loss, losses)``.
+
+    The score loss is dense over the fg/bg masks of the downsampled labels
+    (equal to the mean over gathered pixels); the regression losses are
+    masked means over the selected foreground pixels (``valid``), each
+    against the target of the instance its pixel belongs to.
+    """
+    weights = DEFAULT_WEIGHTS if weights is None else weights
+    raw_scores = decoded['dense_scores']
+    labels = decoded['dense_labels']
+    valid = decoded['valid']
+    fg_mask = labels > 0
+    bg_mask = labels == 0
+    losses = {}
+
+    class_targets = targets.get('classes')
+    lbl_map = clip(labels.long() - 1, 0).reshape(labels.shape[0], -1)
+    if score_channels == 1:
+        logits = raw_scores[..., 0]
+        if class_targets is not None:
+            # fg targets are the per-instance classes even in the binary case
+            fg_tgt = torch.gather(class_targets.float(), 1, lbl_map).reshape(labels.shape)
+        else:
+            fg_tgt = torch.ones_like(logits)
+        losses['score'] = (
+            weights['score_fg'] * L.bce_with_logits(logits, fg_tgt, mask=fg_mask)
+            + weights['score_bg'] * L.bce_with_logits(logits, torch.zeros_like(logits),
+                                                      mask=bg_mask))
+    else:
+        if class_targets is not None:
+            cls_map = torch.gather(class_targets.long(), 1, lbl_map).reshape(labels.shape)
+        else:
+            cls_map = torch.ones_like(labels, dtype=torch.long)
+        tgt = torch.where(fg_mask, cls_map, 0)
+        losses['score'] = (
+            weights['score_fg'] * L.cross_entropy(raw_scores, tgt, mask=fg_mask)
+            + weights['score_bg'] * L.cross_entropy(raw_scores, torch.zeros_like(tgt),
+                                                    mask=bg_mask))
+
+    lbl_idx = clip(decoded['fg_labels'].long() - 1, 0)                  # [B, K]
+
+    def take_target(t):
+        if t is None:
+            return None
+        idx = lbl_idx.reshape(lbl_idx.shape + (1,) * (t.dim() - 2))
+        return torch.gather(t, 1, idx.expand(lbl_idx.shape + t.shape[2:]))
+
+    fourier_t = take_target(targets.get('fourier'))
+    location_t = take_target(targets.get('locations'))
+    contour_t = take_target(targets.get('sampled_contours'))
+    hires_t = take_target(targets.get('hires_sampled_contours'))
+    box_t = take_target(targets.get('boxes'))
+
+    if fourier_t is not None:
+        losses['fourier'] = weights['fourier'] * L.masked_mean(
+            L._abs(decoded['fourier'] - fourier_t) * order_weights, valid)
+    if location_t is not None:
+        losses['location'] = weights['location'] * L.l1_loss(
+            decoded['locations'], location_t, mask=valid)
+    if contour_t is not None:
+        losses['contour'] = weights['contour'] * L.l1_loss(
+            decoded['contour_proposals'], contour_t, mask=valid)
+        if box_t is None:
+            box_t = torch.cat((contour_t.amin(-2), contour_t.amax(-2)), -1)
+        if refinement_enabled:
+            # with refinement off, all_refined holds only the clamped proposals
+            cc_tar = hires_t if hires_t is not None else contour_t
+            refinement_loss = 0.
+            for ref_con in decoded['all_refined']:
+                refinement_loss = refinement_loss + weights['refinement'] * L.l1_loss(
+                    ref_con, cc_tar, mask=valid)
+            losses['refinement'] = refinement_loss
+    if box_t is not None:
+        if iou_loss_enabled:
+            losses['iou'] = weights['iou'] * L.iou_loss(decoded['boxes'], box_t, min_size=1.,
+                                                        mask=valid)
+        if box_loss_enabled:
+            losses['boxes'] = weights['boxes'] * L.iou_loss(decoded['boxes'], box_t,
+                                                            generalized=True, mask=valid)
+        if uncertainty_head and decoded['box_uncertainties'] is not None:
+            losses['uncertainty'] = weights['uncertainty'] * L.box_npll_loss(
+                decoded['box_uncertainties'], decoded['boxes'].detach(), box_t,
+                factor=uncertainty_factor, sigmoid=False, min_size=1., mask=valid)
+    return sum(losses.values()), losses
+
+
 class CPN(nn.Module):
-    """Contour Proposal Network (user-facing, inference).
+    """Contour Proposal Network (user-facing).
 
     Calling the model on a (batch of) image(s) returns per-image lists of
     ``contours, boxes, scores, classes, locations, fourier,
-    contour_proposals, box_uncertainties`` plus ``fg_overflow``.
+    contour_proposals, box_uncertainties`` plus ``fg_overflow``. In train
+    mode, :meth:`forward_padded` with targets returns the loss as well (see
+    :class:`..runtime.trainer.CPNTrainer`).
 
     Args:
         backbone: A backbone module exposing ``feature_channels``.
         max_detections: Detection capacity K per image.
+        order_weights: True weighs the Fourier loss per order
+            (:func:`..ops.cpn.order_weighting`), False not at all; or the
+            ``[order, 1]`` weights themselves.
+        uncertainty_factor: Scale of the box-uncertainty loss (the
+            uncertainty head itself is not ported).
         compute_dtype: e.g. ``torch.bfloat16``: the parameters (fp32) and the
             input are cast for the backbone and heads, and decoding runs in
             fp32, except the refinement field, which stays in that dtype.
@@ -258,7 +386,7 @@ class CPN(nn.Module):
                  refinement_head_stride: int = 1, refinement_interpolation: str = 'bilinear',
                  max_detections: int = 2048, compute_dtype: Optional[torch.dtype] = None,
                  max_imsize: Optional[int] = 2048, tile_size: int = 1024, tile_stride: int = 512,
-                 device=None):
+                 order_weights=True, uncertainty_factor: float = 7., device=None):
         super().__init__()
         device = resolve_device(device)
         self.order = order
@@ -274,6 +402,18 @@ class CPN(nn.Module):
         self.max_imsize = max_imsize
         self.tile_size = tile_size
         self.tile_stride = tile_stride
+        # what cpn_compute_loss reads
+        self.weights = dict(DEFAULT_WEIGHTS)
+        self.iou_loss_enabled = True
+        self.box_loss_enabled = False
+        self.uncertainty_head = False
+        self.uncertainty_factor = uncertainty_factor
+        if order_weights is True:
+            self.order_weights = order_weighting(order)
+        elif order_weights is False:
+            self.order_weights = 1.
+        else:
+            self.order_weights = torch.as_tensor(order_weights, dtype=torch.float32)
         self.core = CPNCore(
             backbone, tuple(backbone.feature_channels), order, self.score_channels,
             refinement=refinement, refinement_margin=refinement_margin,
@@ -289,6 +429,7 @@ class CPN(nn.Module):
                             refinement_iterations=refinement_iterations,
                             refinement_buckets=refinement_buckets,
                             max_detections=max_detections)
+        self._dropouts = [m for m in self.core.modules() if isinstance(m, Dropout2d)]
         self.to(device)
         self.eval()
 
@@ -296,20 +437,44 @@ class CPN(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    @torch.no_grad()
     def forward_padded(self, inputs: torch.Tensor, *, score_thresh=None, nms: bool = True,
                        offsets: Optional[torch.Tensor] = None, scores_lower_bound=None,
-                       scores_upper_bound=None, max_detections: Optional[int] = None) -> dict:
+                       scores_upper_bound=None, max_detections: Optional[int] = None,
+                       targets: Optional[Dict[str, torch.Tensor]] = None,
+                       generator: Optional[torch.Generator] = None) -> dict:
         """Fixed-shape forward of NHWC float input: dense heads → padded detections.
+
+        In eval mode it runs without autograd, in ``compute_dtype``, and ends
+        with NMS. In train mode (``model.train()``) it runs in fp32 with
+        autograd, batch statistics and dropout, and without NMS.
 
         Args:
             offsets: Optional ``[B, 2]`` xy offsets of the inputs in a mosaic
-                (see :func:`cpn_decode`).
+                (see :func:`cpn_decode`); with targets, added after the loss.
             max_detections: The capacity K of this call (the capacity retry
                 of tiled inference); the model's by default.
+            targets: Optional batch of :func:`..data.targets.collate_cpn_targets`
+                tensors on the model's device (``labels``, ``fourier``,
+                ``locations``, ``sampled_contours``, ``hires_sampled_contours``,
+                ``sampling``, optional ``classes``): adds ``loss`` and
+                ``losses`` to the output.
+            generator: ``torch.Generator`` on the model's device for the
+                random draws of training (the selection priority, which
+                subsamples the foreground when it exceeds K, and dropout).
         """
+        train = self.training
+        if train:
+            for m in self._dropouts:
+                m.generator = generator
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            return self._forward_padded(inputs, score_thresh, nms, offsets, scores_lower_bound,
+                                        scores_upper_bound, max_detections, targets, generator)
+
+    def _forward_padded(self, inputs, score_thresh, nms, offsets, scores_lower_bound,
+                        scores_upper_bound, max_detections, targets, generator) -> dict:
+        train = self.training
         score_thresh = self.score_thresh if score_thresh is None else score_thresh
-        cdt = self.compute_dtype
+        cdt = None if train else self.compute_dtype
         if cdt is None:
             dense = self.core(inputs)
         else:
@@ -320,15 +485,34 @@ class CPN(nn.Module):
             dense = torch.func.functional_call(self.core, state, (inputs.to(cdt),))
             dense = {k: (v if v is None or k == 'refinement' else v.float())
                      for k, v in dense.items()}
+        labels = sampling = priority = None
+        if targets is not None:
+            labels, sampling = targets.get('labels'), targets.get('sampling')
+            if train and generator is not None:
+                # unbiased subsampling of the foreground when it exceeds K
+                priority = torch.rand(dense['scores'].shape[:3], generator=generator,
+                                      device=inputs.device)
         decoded = cpn_decode(
             dense, tuple(inputs.shape[1:3]), order=self.order, samples=self.samples,
             score_channels=self.score_channels, score_thresh=score_thresh,
             max_detections=self.max_detections if max_detections is None else max_detections,
             refinement_iterations=self.refinement_iterations if self.refinement else 0,
-            refinement_buckets=self.refinement_buckets,
-            scores_lower_bound=scores_lower_bound, scores_upper_bound=scores_upper_bound,
-            offsets=offsets)
-        if nms:
+            refinement_buckets=self.refinement_buckets, sampling=sampling, labels=labels,
+            priority=priority, scores_lower_bound=scores_lower_bound,
+            scores_upper_bound=scores_upper_bound,
+            offsets=None if targets is not None else offsets)
+        if targets is not None:
+            ow = self.order_weights
+            decoded['loss'], decoded['losses'] = cpn_compute_loss(
+                decoded, targets, score_channels=self.score_channels,
+                order_weights=ow.to(inputs.device) if torch.is_tensor(ow) else ow,
+                weights=self.weights, uncertainty_factor=self.uncertainty_factor,
+                uncertainty_head=self.uncertainty_head, iou_loss_enabled=self.iou_loss_enabled,
+                box_loss_enabled=self.box_loss_enabled,
+                refinement_enabled=bool(self.refinement) and self.refinement_iterations > 0)
+            if offsets is not None:
+                decoded = apply_detection_offsets(decoded, offsets)
+        if nms and not train:
             keep = batched_box_nms(decoded['boxes'], decoded['scores'], decoded['valid'],
                                    self.nms_thresh)
             decoded['valid'] = decoded['valid'] & keep

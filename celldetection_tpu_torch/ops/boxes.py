@@ -2,7 +2,9 @@
 
 Counterpart of ``celldetection_tpu/ops/boxes.py``: ``box_area`` (79),
 ``box_iou`` (83-92), ``_suppression_matrix`` (95-109),
-``remove_small_boxes_mask`` (140-144), ``nms_padded`` (147-191),
+``_pairwise_inter_union``, ``pairwise_box_iou`` and
+``pairwise_generalized_box_iou`` (112-137), ``remove_small_boxes_mask``
+(140-144), ``nms_padded`` (147-191),
 ``_nms_sweep`` (216-250), ``nms_chunked`` (253-347), ``nms_indices``
 (350-362), ``get_iou_voting`` and ``filter_by_box_voting`` (365-387).
 ``_nms_sweep`` is the plain version of the whole sweep that the hand-written
@@ -20,7 +22,8 @@ import time
 
 import torch
 
-__all__ = ['box_area', 'box_iou', 'sort_by_score', 'nms_padded', 'nms_chunked', 'nms_indices',
+__all__ = ['box_area', 'box_iou', 'pairwise_box_iou', 'pairwise_generalized_box_iou',
+           'sort_by_score', 'nms_padded', 'nms_chunked', 'nms_indices',
            'remove_small_boxes_mask', 'get_iou_voting', 'filter_by_box_voting',
            'EXACT_NMS_MIN', 'EXACT_NMS_MAX']
 
@@ -46,6 +49,36 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = area1[:, None] + area2[None, :] - inter
     return torch.where(union > 0, inter / union, 0.)
+
+
+def _pairwise_inter_union(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    # clipped with maximum, whose derivative splits at a tie as jnp.clip's does
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.maximum(rb - lt, lt.new_zeros(()))
+    inter = wh[..., 0] * wh[..., 1]
+    return inter, area1 + area2 - inter
+
+
+def pairwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 0.) -> torch.Tensor:
+    """Aligned (element-wise) IoU of two equal-length box sets ``[..., 4]``."""
+    inter, union = _pairwise_inter_union(boxes1, boxes2)
+    iou = inter / (union + eps)
+    return torch.where(iou >= 0, iou, -iou)   # |iou| with jnp.abs's slope 1 at 0
+
+
+def pairwise_generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                                 eps: float = 0.) -> torch.Tensor:
+    """Aligned generalized IoU of two equal-length box sets ``[..., 4]``."""
+    inter, union = _pairwise_inter_union(boxes1, boxes2)
+    iou = inter / (union + eps)
+    lti = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rbi = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    whi = torch.maximum(rbi - lti, lti.new_zeros(()))
+    areai = whi[..., 0] * whi[..., 1]
+    return iou - (areai - union) / (areai + eps)
 
 
 def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:

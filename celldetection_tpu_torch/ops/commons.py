@@ -1,14 +1,27 @@
 """Common tensor ops (NHWC at the public functions).
 
 Counterpart of ``celldetection_tpu/ops/commons.py`` (``resize_bilinear``,
-``resize_nearest``, ``equal_size``: lines 24-76; ``process_scores``:
-115-143). Models run NCHW internally and call :func:`interpolate_nchw`.
+``resize_nearest``, ``equal_size``: lines 24-76; ``downsample_labels``:
+79-101; ``process_scores``: 115-143). Models run NCHW internally and call
+:func:`interpolate_nchw`.
 """
 import torch
 import torch.nn.functional as F
 
 __all__ = ['interpolate_nchw', 'resize_bilinear', 'resize_nearest', 'equal_size',
-           'process_scores']
+           'downsample_labels', 'process_scores', 'clip']
+
+
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``jnp.clip``: a clamp whose derivative is 1/2 at a bound (``clamp``'s is 1).
+
+    The tie rule matters to gradients that must agree with the JAX package.
+    """
+    if lo is not None:
+        x = torch.maximum(x, x.new_tensor(lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_tensor(hi))
+    return x
 
 
 def interpolate_nchw(x: torch.Tensor, size, mode: str = 'bilinear') -> torch.Tensor:
@@ -50,6 +63,24 @@ def equal_size(x: torch.Tensor, reference: torch.Tensor, mode: str = 'bilinear')
     if mode == 'nearest':
         return resize_nearest(x, size)
     return resize_bilinear(x, size)
+
+
+def downsample_labels(inputs: torch.Tensor, size) -> torch.Tensor:
+    """Downsample ``[n, h, w]`` or ``[n, h, w, c]`` labels to ``size`` (h, w):
+    max pooling by the integer factors, then nearest resizing to the exact
+    size. Non-float labels become float32.
+    """
+    squeeze = inputs.dim() == 3
+    x = inputs[..., None] if squeeze else inputs
+    h, w = x.shape[1:3]
+    th, tw = (int(s) for s in size)
+    if (h, w) == (th, tw):
+        return inputs
+    if not x.is_floating_point():
+        x = x.float()
+    r = F.max_pool2d(x.permute(0, 3, 1, 2), (h // th, w // tw))
+    r = interpolate_nchw(r, (th, tw), 'nearest').permute(0, 2, 3, 1)
+    return r[..., 0] if squeeze else r
 
 
 def _apply_score_bounds(scores, scores_lower_bound, scores_upper_bound):

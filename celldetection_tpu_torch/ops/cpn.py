@@ -2,7 +2,8 @@
 
 Counterpart of ``celldetection_tpu/ops/cpn.py``: ``rel_location2abs_location``
 (35-60), ``fourier_basis`` and ``fouriers2contours`` (63-109), ``get_scale``,
-``scale_contours`` and ``scale_fourier`` (112-136), ``remove_border_contours``
+``scale_contours`` and ``scale_fourier`` (112-136), ``order_weighting``
+(139-146), ``remove_border_contours``
 and ``filter_contours_by_stitching_rule`` (167-226), ``batched_box_nms``
 (229-237).
 """
@@ -14,7 +15,7 @@ import torch
 from .boxes import nms_padded
 
 __all__ = ['rel_location2abs_location', 'fourier_basis', 'fouriers2contours', 'get_scale',
-           'scale_contours', 'scale_fourier', 'remove_border_contours',
+           'scale_contours', 'scale_fourier', 'order_weighting', 'remove_border_contours',
            'filter_contours_by_stitching_rule', 'batched_box_nms']
 
 
@@ -100,6 +101,16 @@ def scale_fourier(actual_size, original_size, fourier: torch.Tensor, location: t
     scale = get_scale(actual_size, original_size, dtype=fourier.dtype, device=fourier.device)
     coef_scale = torch.repeat_interleave(scale, 2, -1)   # (sx, sx, sy, sy)
     return fourier * coef_scale, location * scale
+
+
+def order_weighting(order: int, max_w: float = 5., min_w: float = 1., spread=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Quadratically decaying per-order loss weights, ``[order, 1]``."""
+    x = torch.arange(order, dtype=dtype)
+    if spread is None:
+        spread = order - 1
+    y = min_w + (max_w - min_w) * (1. - torch.clamp(x / spread, 0., 1.)) ** 2
+    return y[:, None]
 
 
 def remove_border_contours(contours: torch.Tensor, size, padding: float = 1, top: bool = True,

@@ -1,3 +1,4 @@
 from .cpn_inference import preprocess
+from .trainer import CPNTrainer
 
-__all__ = ['preprocess']
+__all__ = ['preprocess', 'CPNTrainer']

@@ -50,7 +50,19 @@ Phases, in order; any failure exits non-zero:
      kernel launches of that run are ``launches_resnet``), then
      CpnResNet18FPN with three classes in bf16 at batch 4;
  10. ``TiledInference`` of the flagship on a 2048^2 blob mosaic (tile 1024,
-     stride 768), bf16 at batch 4: tiles/s and ms by stage.
+     stride 768), bf16 at batch 4: tiles/s and ms by stage;
+ 11. training: (a) one ``make_train_step`` step of full-width CpnU22 at
+     128^2, batch 2, K above the score map's pixels, on the card against the
+     same step on the CPU, TF32 off (loss and each term, every gradient,
+     the norms' running statistics); (b) ``scripts/bench_train.py``'s
+     workload through ``CPNTrainer.fit``: full-width CpnU22, one input
+     channel, 256^2, batch 8, 32 samples, K = 512, Adam at 5e-4, prefetch 1,
+     32 images of 24 disks drawn with numpy; one warm-up epoch, then 3 timed:
+     imgs/s end to end and for the device alone, host ms a batch for the
+     targets, the device's idle share, peak memory and the 10 slowest
+     device kernels of one step; (c) 30 steps on one fixed batch (the last
+     loss below the first), then ``CPNTrainer.predict`` on two held-out
+     256^2 images, which launches the NMS kernels (``launches_train``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -74,7 +86,11 @@ from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_block
                                                _suppression_counts, _suppression_matrix,
                                                _suppression_pairs, box_iou, nms_chunked,
                                                nms_padded, sort_by_score)
+from celldetection_tpu_torch.data import collate_cpn_targets, cpn_targets_single
 from celldetection_tpu_torch.parallel.tiles import TiledInference, tile_image
+from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
+from celldetection_tpu_torch.runtime.trainer import CPNTrainer
+from celldetection_tpu_torch.util.config import conf2optimizer
 from celldetection_tpu_torch.util.weights import init_jax_variables, state_dict_from_jax
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -85,6 +101,9 @@ CHECK_SIZE = 256     # side of the card-vs-CPU check
 # order 5, 32 samples, K = 2048, 4 refinement loops, NMS threshold 0.2
 FLAGSHIP = dict(order=5, samples=32, max_detections=2048, refinement_iterations=4,
                 nms_thresh=0.2)
+# the training workload of scripts/bench_train.py:29-80 (CpnU22, one channel)
+TRAIN = dict(samples=32, max_detections=512)
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_IMAGES = 256, 8, 32
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -415,10 +434,10 @@ def threshold_in_gap(probs, lo, hi):
     return float((s[i] + s[i + 1]) / 2), float(gaps.max())
 
 
-def profile_step(step, label):
+def profile_step(step, label, top=12):
     """Where one step's device time goes: ``torch.profiler`` over one call,
-    the device kernels' share of the step's wall time, the top kernels and
-    the convolutions (input and weight shapes) that take the most time."""
+    the device kernels' share of the step's wall time, the ``top`` kernels
+    and the convolutions (input and weight shapes) that take the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -429,15 +448,16 @@ def profile_step(step, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device rows named aten::* are the GPU-side spans of operators, which
-    # overlap the kernels they launch: counting them too would count twice
+    # overlap the kernels they launch: counting them too would count twice (so
+    # would the GPU-side spans of annotations such as Optimizer.step#Adam.step)
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and not e.key.startswith('aten::')),
-                  reverse=True)
+                   if e.device_type == DeviceType.CUDA and not e.key.startswith('aten::')
+                   and '#' not in e.key), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f'  {label} profile: device kernels {busy:.2f} ms in a {wall_ms:.2f} ms step '
           f'(busy share {busy / wall_ms:.3f}, profiler on)', flush=True)
-    for ms, count, key in rows[:12]:
+    for ms, count, key in rows[:top]:
         print(f'    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{count:<5d} {key[:90]}', flush=True)
     convs = sorted(((e.device_time_total / 1e3, e.count, e.input_shapes)
                     for e in prof.key_averages(group_by_input_shape=True)
@@ -978,6 +998,217 @@ def phase_tiled_flagship(card):
                                             'locations')), '2048^2: bad results')
 
 
+def disk_images(n, size, seed, num=24, radius=(6, 14)):
+    """``n`` training pairs ``(image [size, size, 1], labels [size, size, 1])``
+    drawn with numpy, as ``data.random_geometric_objects`` draws them in the
+    JAX package (which needs cv2): up to ``num`` non-overlapping disks of
+    radius ``radius`` (a disk that would overlap one already placed is left
+    out), intensity 0.4-0.9, noise 0.03."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size]
+    out = []
+    for _ in range(n):
+        labels = np.zeros((size, size, 1), np.int32)
+        image = np.zeros((size, size), np.float32)
+        for _ in range(num):
+            r = rng.randint(*radius)
+            cx, cy = rng.randint(r + 1, size - r - 1, 2)
+            disk = (xx - cx) ** 2 + (yy - cy) ** 2 <= r * r
+            if (labels[disk] > 0).any():
+                continue
+            labels[disk, 0] = labels.max() + 1
+            image[disk] = 0.4 + 0.5 * rng.rand()
+        image += rng.randn(size, size).astype(np.float32) * 0.03
+        out.append((np.clip(image, 0, 1)[..., None], labels))
+    return out
+
+
+def train_batch(pairs, samples, seed):
+    """Targets of ``pairs`` from the port's numpy pipeline, as one batch."""
+    items = [cpn_targets_single(lab, samples, 5, rng=np.random.RandomState(seed + i))
+             for i, (_, lab) in enumerate(pairs)]
+    targets = collate_cpn_targets(items, max_instances=128)
+    targets.pop('num_instances')
+    return {'image': np.stack([im for im, _ in pairs]), **targets}
+
+
+def biases_before_norms(model):
+    """Conv biases that feed a batch norm: in train mode their gradient is 0
+    but for rounding (the norm subtracts the batch mean)."""
+    keys = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            for i in range(len(mod) - 1):
+                if isinstance(mod[i], torch.nn.Conv2d) and isinstance(mod[i + 1], models.Norm):
+                    keys.add(f'{name}.{i}.bias')
+    return keys
+
+
+def train_step_on(dev, dtype, batch_np, sd, refinement_iterations):
+    """One ``make_train_step`` step of full-width CpnU22 (weights ``sd``,
+    dropout off) on ``dev`` in ``dtype``: loss terms, gradients and running
+    statistics (float64, on the CPU), seconds, and the biases before norms."""
+    size = batch_np['image'].shape[1]
+    m = models.CpnU22(in_channels=1, samples=32, max_detections=(size // 2) ** 2,
+                      refinement_iterations=refinement_iterations, device=dev)
+    m.load_state_dict(sd, strict=True)
+    m.to(dtype)
+    for d in m._dropouts:          # the devices' generators differ: no dropout here
+        d.p = 0.
+    if dtype == torch.float64:
+        batch_np = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+                    for k, v in batch_np.items()}
+    state = TrainState.create(m, conf2optimizer({'Adam': {'lr': 5e-4}}))
+    t0 = time.perf_counter()
+    _, metrics = make_train_step(m, state.optimizer)(
+        state, batch_np, torch.Generator(device=dev).manual_seed(SEED))
+    loss = {k: float(v) for k, v in metrics.items()}
+    sec = time.perf_counter() - t0
+    grads = {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()
+             if p.grad is not None}
+    stats = {k: v.detach().cpu().double() for k, v in m.named_buffers()}
+    return loss, grads, stats, sec, biases_before_norms(m)
+
+
+def gradient_errors(g64, grads, zero):
+    """Per tensor, max |grads - g64| in units of the tensor's largest |g64|
+    (a conv bias before a norm: its weight's, its own being 0 but for rounding)."""
+    out = {}
+    for k, g in g64.items():
+        scale = max(float(g64[k[:-len('bias')] + 'weight' if k in zero else k].abs().max()), 1e-30)
+        out[k] = float((grads[k] - g).abs().max()) / scale
+    return out
+
+
+def phase_train_card_vs_cpu():
+    """Phase 11a: one training step of full-width CpnU22 on the card and on
+    the CPU, TF32 off, the same weights and batch, in float32 and float64."""
+    size, batch, loops = 128, 2, 4
+    print(f'== phase 11a: one training step, CpnU22 (full width, one channel, {loops} refinement '
+          f'loops) at {size}^2, batch {batch}, K {(size // 2) ** 2}, card vs CPU, TF32 off',
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch_np = train_batch(disk_images(batch, size, SEED + 11), 32, SEED)
+    sd = random_weights(models.CpnU22(in_channels=1, samples=32, device='cpu'))
+    runs = {name: train_step_on(dev, dt, batch_np, sd, loops) for name, dev, dt in (
+        ('cpu', 'cpu', torch.float32), ('card', 'cuda', torch.float32),
+        ('cpu64', 'cpu', torch.float64), ('card64', 'cuda', torch.float64))}
+    (lc, gc, sc, cpu_s, zero), (lg, gg, sg, gpu_s, _) = runs['cpu'], runs['card']
+    g64, gg64 = runs['cpu64'][1], runs['card64'][1]
+    print(f'  step on the CPU {cpu_s:.1f} s (float64 {runs["cpu64"][3]:.1f} s), card '
+          f'{gpu_s:.2f} s (float64 {runs["card64"][3]:.2f} s; first calls, cuDNN set-up '
+          f'included)', flush=True)
+    check(set(lc) == set(lg), 'loss terms differ')
+    rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
+    worst = max(rel, key=rel.get)
+    print(f'  float32 loss card {lg["loss"]:.6f}, cpu {lc["loss"]:.6f}; worst term {worst}: '
+          f'relative {rel[worst]:.2e} (gate 1e-4)', flush=True)
+    check(rel[worst] <= 1e-4, f'loss term {worst} differs by {rel[worst]:.2e}')
+    check(all(bool(torch.isfinite(g).all()) for g in gg.values()), 'a card gradient is not finite')
+    serr = {k: float((sg[k] - v).abs().max()) / max(1., float(v.abs().max()))
+            for k, v in sc.items()}
+    worst = max(serr, key=serr.get)
+    print(f'  float32 running statistics: worst {worst}: {serr[worst]:.2e} (gate 1e-5 of '
+          f'max(1, |value|))', flush=True)
+    check(serr[worst] <= 1e-5, f'running statistic {worst} differs by {serr[worst]:.2e}')
+    # The gradients are held in float64: random full-width weights leave some
+    # of them ill-conditioned in float32 (the train-mode norms remove most of
+    # what reaches the deep layers), so that float32 on either device lies up
+    # to some 7e-2 of a tensor's largest gradient from float64. In float64 the
+    # card and the CPU compute the same function to rounding.
+    e64 = gradient_errors(g64, gg64, zero)
+    worst = max(e64, key=e64.get)
+    print(f'  float64 gradients, card vs CPU: worst {worst}: {e64[worst]:.2e} of the largest '
+          f'|gradient| (gate 1e-8; a conv bias before a norm against its weight\'s)', flush=True)
+    check(e64[worst] <= 1e-8, f'float64 gradient {worst} differs by {e64[worst]:.2e}')
+    e_card, e_cpu = gradient_errors(g64, gg, zero), gradient_errors(g64, gc, zero)
+    e_pair = gradient_errors(gc, gg, zero)
+    worst = max(e_card, key=e_card.get)
+    n_card, n_cpu, n_pair = (sum(e <= 1e-3 for e in d.values()) for d in (e_card, e_cpu, e_pair))
+    print(f'  float32 gradients against float64, within 1e-3: card {n_card}, CPU {n_cpu} of '
+          f'{len(e_card)} tensors; card vs CPU within 1e-3: {n_pair}; worst on the card '
+          f'{worst}: {e_card[worst]:.2e} (CPU {e_cpu[worst]:.2e})', flush=True)
+
+
+def phase_train(card):
+    """Phases 11b and 11c: ``CPNTrainer.fit`` on scripts/bench_train.py's
+    workload, then 30 steps on one batch and ``CPNTrainer.predict``.
+    Returns the NMS kernels' launches in ``predict``."""
+    print(f'== phase 11b: training, CpnU22 (full width, one channel), {TRAIN_SIZE}^2, batch '
+          f'{TRAIN_BATCH}, samples {TRAIN["samples"]}, K {TRAIN["max_detections"]}, Adam 5e-4, '
+          f'prefetch 1, {TRAIN_IMAGES} images of 24 disks (scripts/bench_train.py)', flush=True)
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = disk_images(TRAIN_IMAGES, TRAIN_SIZE, SEED)
+    model = models.CpnU22(in_channels=1, **TRAIN)
+    model.load_state_dict(random_weights(model), strict=True)
+    trainer = CPNTrainer(model, optimizer={'Adam': {'lr': 5e-4}}, log_fn=lambda *a: None,
+                         seed=SEED)
+    fit = dict(batch_size=TRAIN_BATCH, crop_size=TRAIN_SIZE, prefetch=1)
+    t0 = time.perf_counter()
+    trainer.fit(data, epochs=1, **fit)                 # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    epochs = 3
+    t0 = time.perf_counter()
+    hist = trainer.fit(data, epochs=epochs, **fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_imgs = epochs * (-(-TRAIN_IMAGES // TRAIN_BATCH)) * TRAIN_BATCH
+    check(len(hist) == 4 and all(np.isfinite(h['loss']) for h in hist), 'fit: bad history')
+
+    batches = []                                       # the host's part alone
+    t0 = time.perf_counter()
+    for j in range(4):
+        batches.append(trainer._make_batch(data, np.arange(TRAIN_BATCH) + TRAIN_BATCH * j,
+                                           TRAIN['samples'], 5, 128, np.random.RandomState(j),
+                                           crop_size=TRAIN_SIZE))
+    host_ms = (time.perf_counter() - t0) / 4 * 1e3
+    step, state, gen = trainer._step_fn, trainer.state, trainer.generator
+    batch = batches[0]
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    dev_s = (time.perf_counter() - t0) / iters
+    dev_rate = TRAIN_BATCH / dev_s
+    idle = max(0., 1. - (n_imgs / dev_rate) / wall)
+    print(f'  [{card}] end to end {n_imgs / wall:.3f} imgs/s ({epochs} epochs, {n_imgs} images '
+          f'in {wall:.3f} s; warm-up epoch {warm_s:.1f} s); device alone {dev_rate:.3f} imgs/s '
+          f'({1e3 * dev_s:.2f} ms a step of {TRAIN_BATCH}); host targets {host_ms:.1f} ms a batch; '
+          f'device idle share {idle:.4f}; peak memory {peak:.2f} GiB; losses by epoch '
+          f'{[round(h["loss"], 3) for h in hist]}', flush=True)
+    profile_step(lambda: step(state, batch, gen), f'[{card}] training step, batch {TRAIN_BATCH}',
+                 top=10)
+
+    print('== phase 11c: 30 steps on one fixed batch, then CPNTrainer.predict on two held-out '
+          f'{TRAIN_SIZE}^2 images', flush=True)
+    losses = [float(step(state, batches[1], gen)[1]['loss']) for _ in range(30)]
+    print(f'  loss {losses[0]:.4f} -> {losses[-1]:.4f} (last / first {losses[-1] / losses[0]:.4f})',
+          flush=True)
+    check(losses[-1] < losses[0], 'the loss did not fall on a fixed batch')
+    held = [im for im, _ in disk_images(2, TRAIN_SIZE, SEED + 99)]
+    for k in kernels.KERNELS:
+        k.launches = 0
+    preds = trainer.predict(held)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    print(f'  predict: {[len(p["contours"]) for p in preds]} detections; NMS kernel launches '
+          f'{launches}', flush=True)
+    check(all(n > 0 for n in launches.values()), 'predict launched no NMS kernel')
+    for p in preds:
+        check(p['contours'].shape[1:] == (TRAIN['samples'], 2) and all(
+            np.isfinite(p[k]).all() for k in ('contours', 'boxes', 'scores')), 'predict: bad results')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -1025,14 +1256,16 @@ def main():
               lambda **kw: models.CpnResNet18FPN(in_channels=3, classes=3, **FLAGSHIP, **kw),
               tame=True, runs=(('bf16', torch.bfloat16, 4),))
     phase_tiled_flagship(card)
-    check('jax' not in sys.modules and 'celldetection_tpu' not in sys.modules,
-          'JAX or the JAX package was imported')
+    phase_train_card_vs_cpu()
+    launches_train = phase_train(card)
+    check(not {'jax', 'celldetection_tpu', 'cv2', 'skimage'} & set(sys.modules),
+          'JAX, the JAX package, cv2 or scikit-image was imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'celldetection_tpu_torch/csrc/{SOURCES[name]}',
         'replaces': 'celldetection_tpu/kernels/nms_pallas.py:59',
         'launches': launches[name], 'launches_tiled': launches_tiled[name],
-        'launches_resnet': launches_resnet[name],
+        'launches_resnet': launches_resnet[name], 'launches_train': launches_train[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],
