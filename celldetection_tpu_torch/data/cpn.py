@@ -3,10 +3,12 @@
 Counterpart of ``celldetection_tpu/data/cpn.py``: ``efd`` (34-91),
 ``fourier2contour`` (94-107), ``labels2contours`` (110-139),
 ``contours2fourier`` (165-193), ``mask_labels_by_distance_`` (429-434),
-``labels2distances`` with its helpers (437-502) and ``CPNTargetGenerator``
-(505-615).
+``labels2distances`` with its helpers (437-502), ``CPNTargetGenerator``
+(505-615), and the rendering of contours into label images:
+``contours2boxes``, ``render_contour``, ``clip_contour_``,
+``contours2labels`` and ``resolve_label_channels`` (196-287).
 
-The JAX package calls two functions of OpenCV here, and the port has its own
+The JAX package calls four functions of OpenCV here, and the port has its own
 numpy versions that give the same output, point for point and bit for bit:
 
 * :func:`outer_borders` is ``cv2.findContours(RETR_EXTERNAL,
@@ -18,6 +20,12 @@ numpy versions that give the same output, point for point and bit for bit:
   chamfer with OpenCV's 16.16 fixed-point weights for 0.955 and 1.3693, one
   forward and one backward pass, each row's recurrence solved as a running
   minimum (``np.minimum.accumulate``).
+* :func:`render_contour` is ``cv2.drawContours(thickness=-1)``, which is
+  ``cv2.fillPoly``: each edge drawn as an 8-connected line, then the edges
+  filled by scanline in 16.16 fixed point (:func:`_fill_polygon`), so
+  self-intersecting contours and contours of 1 or 2 points come out as cv2's.
+* :func:`resolve_label_channels` dilates as ``cv2.dilate`` with the 3x3
+  cross of ``cv2.getStructuringElement(MORPH_CROSS)``.
 """
 from collections import OrderedDict
 
@@ -29,7 +37,11 @@ from .segmentation import filter_instances_
 
 __all__ = ['CPNTargetGenerator', 'efd', 'fourier2contour', 'labels2contours',
            'contours2fourier', 'mask_labels_by_distance_', 'labels2distances',
-           'outer_borders', 'chamfer_distance']
+           'outer_borders', 'chamfer_distance', 'contours2boxes', 'render_contour',
+           'clip_contour_', 'contours2labels', 'resolve_label_channels']
+
+# cv2's values of the constants the JAX package passes
+RETR_EXTERNAL, CHAIN_APPROX_NONE, DIST_L2 = 0, 1, 2
 
 
 def efd(contour, order: int = 10, epsilon: float = 1e-6, autoclose: bool = True):
@@ -211,16 +223,28 @@ def outer_borders(mask: np.ndarray, offset=(0, 0)) -> list:
     return [(np.asarray(b, np.int32) + shift)[:, None, :] for b in borders[::-1]]
 
 
-def labels2contours(labels: np.ndarray, flag_fragmented_inplace: bool = False,
-                    raise_fragmented: bool = True, constant: int = -1) -> dict:
+def _only(name: str, value, implemented: int, meaning: str):
+    """Raise unless ``value`` is the one cv2 constant the port implements."""
+    if value != implemented:
+        raise NotImplementedError(f'{name}={value!r}: the port implements only {name}='
+                                  f'{implemented} ({meaning})')
+
+
+def labels2contours(labels: np.ndarray, mode=RETR_EXTERNAL, method=CHAIN_APPROX_NONE,
+                    flag_fragmented_inplace: bool = False, raise_fragmented: bool = True,
+                    constant: int = -1) -> dict:
     """Label image ``[h, w]`` or ``[h, w, c]`` → ``{label: int32 [n, 1, 2] contour}``.
 
     Each instance's outer border is traced in its bounding-box crop
     (:func:`outer_borders`). A one-point contour is repeated to length 2. An
     instance with more than one external border is fragmented: it is set to
     ``constant`` in ``labels`` (``flag_fragmented_inplace``), raises
-    (``raise_fragmented``) or is left out.
+    (``raise_fragmented``) or is left out. ``mode`` and ``method`` keep the
+    JAX package's positions; only cv2's ``RETR_EXTERNAL`` (0) and
+    ``CHAIN_APPROX_NONE`` (1) are implemented.
     """
+    _only('mode', mode, RETR_EXTERNAL, 'cv2.RETR_EXTERNAL')
+    _only('method', method, CHAIN_APPROX_NONE, 'cv2.CHAIN_APPROX_NONE')
     if labels.ndim == 2:
         labels = labels[..., None]
     crops = []
@@ -441,14 +465,16 @@ def _labels2distances_instance(labels, single_support, protected_size=36):
     return out
 
 
-def labels2distances(labels: np.ndarray, overlap_zero: bool = True, per_instance: bool = True,
-                     **kwargs):
+def labels2distances(labels: np.ndarray, distance_type=DIST_L2, overlap_zero: bool = True,
+                     per_instance: bool = True, **kwargs):
     """Per-instance normalised distance transform of ``[h, w, c]`` labels.
 
     Returns ``(distances, labels)``: distances in [0, 1] with instance
     centres at 1, and a copy of the labels with overlaps set to -1 when
-    ``overlap_zero``. The transform is :func:`chamfer_distance`.
+    ``overlap_zero``. The transform is :func:`chamfer_distance`, cv2's
+    ``DIST_L2`` (2), the one ``distance_type`` implemented.
     """
+    _only('distance_type', distance_type, DIST_L2, 'cv2.DIST_L2')
     labels = labels.copy()
     support = np.count_nonzero(labels > 0, axis=2)
     if overlap_zero:
@@ -458,6 +484,225 @@ def labels2distances(labels: np.ndarray, overlap_zero: bool = True, per_instance
         single = support > 0
     fn = _labels2distances_instance if per_instance else _labels2distances_fg
     return np.clip(fn(labels, single, **kwargs), 0., 1.), labels
+
+
+# --- rendering contours into label images (cv2.drawContours and cv2.dilate) ---
+
+_XY_SHIFT = 16   # cv2's fixed-point fraction bits of the polygon fill
+
+
+def contours2boxes(contours: np.ndarray) -> np.ndarray:
+    """Contours ``[n, s, 2]`` → ``(x0, y0, x1, y1)`` boxes ``[n, 4]``."""
+    if len(contours):
+        return np.concatenate((contours.min(1), contours.max(1)), 1)
+    return np.empty((0, 4))
+
+
+def _line_pixels(x0: int, y0: int, x1: int, y1: int):
+    """The pixels of cv2's 8-connected line (``LineIterator``, left to right):
+    Bresenham along the major axis, the minor step taken when the error
+    term is negative, so a tie stays on the row (or column) of the start."""
+    if x1 < x0:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, abs(y1 - y0)
+    sy = 1 if y1 >= y0 else -1
+    major, minor = (dy, dx) if dy > dx else (dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    m = (2 * minor * k + major - 1) // (2 * major) if major else k
+    if dy > dx:
+        return x0 + m, y0 + sy * k
+    return x0 + k, y0 + sy * m
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _fill_polygon(img: np.ndarray, pts: np.ndarray, val):
+    """``cv2.fillPoly`` of one polygon of integer points, 8-connected, no
+    shift (what ``cv2.drawContours(thickness=-1)`` does): every edge is drawn
+    as a line (``CollectPolyEdges``), then the non-horizontal edges are
+    filled by scanline with even-odd pairing (``FillEdgeCollection``): edges
+    in 16.16 fixed point with slopes truncated toward zero, the active list
+    merged by x as each edge starts and bubble-sorted (stably) after each
+    row, each span from the ceiling of its left x to the floor of its right.
+    Every point must lie inside ``img``, so no line needs cv2's clipping."""
+    h, w = img.shape
+    edges = []
+    px, py = (int(v) for v in pts[-1])
+    for qx, qy in pts.tolist():
+        xs, ys = _line_pixels(px, py, qx, qy)
+        img[ys, xs] = val
+        if py != qy:
+            slope = _trunc_div((qx - px) << _XY_SHIFT, qy - py)
+            top = (py, px) if py < qy else (qy, qx)
+            edges.append([top[0], max(py, qy), top[1] << _XY_SHIFT, slope])
+        px, py = qx, qy
+    if len(edges) < 2:
+        return
+    edges.sort(key=lambda e: (e[0], e[2], e[3]))
+    one = (1 << _XY_SHIFT) - 1
+    y_end = min(max(e[1] for e in edges), h)
+    active, i = [], 0
+    for y in range(edges[0][0], y_end):
+        merged, draw, prev, j = [], False, None, 0
+        while True:
+            last = active[j] if j < len(active) else None
+            if last is not None and last[1] == y:      # the edge ends above this row
+                j += 1
+                continue
+            new = edges[i] if i < len(edges) and edges[i][0] == y else None
+            if last is not None and (new is None or last[2] < new[2]):
+                cur, j = last, j + 1
+            elif new is not None:                      # an edge starts on this row
+                cur, i = new, i + 1
+            else:
+                break
+            if draw:
+                left, right = (cur, prev) if prev[2] > cur[2] else (prev, cur)
+                x0, x1 = (left[2] + one) >> _XY_SHIFT, right[2] >> _XY_SHIFT
+                if x0 < w and x1 >= 0:
+                    img[y, max(x0, 0):min(x1, w - 1) + 1] = val
+                prev[2] += prev[3]
+                cur[2] += cur[3]
+            merged.append(cur)
+            prev, draw = cur, not draw
+        active = sorted(merged, key=lambda e: e[2])
+
+
+def render_contour(contour, val=1, dtype='int32', round=False, reference=None, thickness=-1):
+    """Rasterize one contour into a tight crop; returns ``(crop, (xmin, xmax), (ymin, ymax))``.
+
+    The fill is ``cv2.drawContours(thickness=-1)``'s, pixel for pixel
+    (:func:`_fill_polygon`), of the points truncated to int32 as the JAX
+    package passes them. Only filled contours (``thickness=-1``) are
+    implemented, and ``reference`` must bound the contour.
+    """
+    if thickness != -1:
+        raise NotImplementedError(f'thickness={thickness}: the port implements only filled '
+                                  f'contours (thickness=-1)')
+    bounds = contour if reference is None else reference
+    (xmin, ymin), (xmax, ymax) = (fn(bounds, axis=0) for fn in (np.min, np.max))
+    xmin, ymin = int(np.floor(xmin)), int(np.floor(ymin))
+    xmax, ymax = int(np.ceil(xmax)), int(np.ceil(ymax))
+    pts = np.round(contour) if round else contour
+    pts = np.asarray(pts, dtype=np.int32).reshape((-1, 2)) - np.array([xmin, ymin], np.int32)
+    crop = np.zeros((ymax - ymin + 1, xmax - xmin + 1), dtype=dtype)
+    if len(pts):
+        if (pts < 0).any() or (pts >= np.array(crop.shape[::-1])).any():
+            raise NotImplementedError('reference does not bound the contour: cv2 clips such '
+                                      'lines, which the port does not implement')
+        _fill_polygon(crop, pts, val)
+    return crop, (xmin, xmax), (ymin, ymax)
+
+
+def clip_contour_(contour: np.ndarray, size):
+    """Clip xy points in place to ``[0, size[1]]`` by ``[0, size[0]]``."""
+    np.clip(contour[..., 0], 0, size[1], out=contour[..., 0])
+    np.clip(contour[..., 1], 0, size[0], out=contour[..., 1])
+
+
+def contours2labels(contours, size, rounded: bool = True, clip: bool = True,
+                    initial_depth: int = 1, gap: int = 3, dtype='int32',
+                    ioa_thresh: float = None, sort_by=None, sort_descending: bool = True,
+                    return_indices: bool = False):
+    """Contours → label image ``[h, w, c]`` whose channels hold overlapping instances.
+
+    Instance ``i`` gets label ``i + 1``, in the first channel with no label
+    within ``gap`` pixels of its box. See :func:`resolve_label_channels` to
+    flatten the channels.
+    """
+    contours_ = contours
+    if sort_by is not None:
+        indices = np.argsort(sort_by)
+        if sort_descending:
+            indices = indices[::-1]
+        contours_ = (contours[i] for i in indices)
+    labels = np.zeros(tuple(size) + (initial_depth,), dtype=dtype)
+    lbl = 1
+    keep = []
+    for idx, contour in enumerate(contours_):
+        contour = np.array(contour, dtype=float)
+        if rounded:
+            contour = np.round(contour)
+        if clip:
+            clip_contour_(contour, np.array(size) - 1)
+        a, (xmin, xmax), (ymin, ymax) = render_contour(contour, val=lbl, dtype=dtype)
+        if ioa_thresh is not None:
+            m = a > 0
+            crp = (labels[ymin:ymin + a.shape[0], xmin:xmin + a.shape[1]] > 0).any(-1)
+            ioa = crp[m].sum() / max(m.sum(), 1)
+            if ioa > ioa_thresh:
+                continue
+            keep.append(idx)
+        lbl += 1
+        s = (labels[max(0, ymin - gap): gap + ymin + a.shape[0],
+                    max(0, xmin - gap): gap + xmin + a.shape[1]] > 0).sum((0, 1))
+        i = next(i for i in range(labels.shape[2] + 1)
+                 if not (i < labels.shape[2] and np.any(s[i])))
+        if i >= labels.shape[2]:
+            labels = np.concatenate((labels, np.zeros(size, dtype=dtype)[..., None]), axis=-1)
+        labels[ymin:ymin + a.shape[0], xmin:xmin + a.shape[1], i] += a
+    if return_indices:
+        return labels, keep
+    return labels
+
+
+def _cross(ksize) -> np.ndarray:
+    """``cv2.getStructuringElement(MORPH_CROSS, ksize)``: the anchor's row and column."""
+    kw, kh = ksize
+    k = np.zeros((kh, kw), np.uint8)
+    k[kh // 2, :] = 1
+    k[:, kw // 2] = 1
+    return k
+
+
+def _dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.dilate`` with the kernel's centre as anchor and cv2's default
+    border, which never wins a maximum: the largest value under the kernel."""
+    kh, kw = kernel.shape
+    ay, ax = kh // 2, kw // 2
+    h, w = img.shape
+    pad = np.full((h + kh - 1, w + kw - 1), -np.inf)
+    pad[ay:ay + h, ax:ax + w] = img
+    out = np.full(img.shape, -np.inf)
+    for dy, dx in zip(*np.nonzero(kernel)):
+        np.maximum(out, pad[dy:dy + h, dx:dx + w], out=out)
+    return out
+
+
+def resolve_label_channels(labels: np.ndarray, method: str = 'dilation', max_iter: int = 999,
+                           kernel=(3, 3)) -> np.ndarray:
+    """Flatten a channelled label image; overlaps resolved by iterative dilation.
+
+    A pixel of one instance keeps its label; a pixel of several takes, round
+    after round, the largest label of its cross-shaped neighbourhood
+    (``cv2.getStructuringElement(1, kernel)``) once one is set there.
+    """
+    if isinstance(kernel, (tuple, list)):
+        kernel = _cross(kernel)
+    mask_sm = np.sum(labels > 0, axis=-1)
+    mask = mask_sm > 1
+    if mask.any():
+        if method == 'dilation':
+            core = mask_sm == 1
+            lbl = np.zeros(labels.shape[:2], dtype='float64')
+            lbl[core] = labels.max(-1)[core]
+            for _ in range(max_iter):
+                lbl_prev = np.copy(lbl)
+                m = mask & (lbl <= 0)
+                if not np.any(m):
+                    break
+                lbl[m] = _dilate(lbl, np.asarray(kernel))[m]
+                if np.allclose(lbl_prev, lbl):
+                    break
+        else:
+            raise ValueError(f'Invalid method: {method}')
+    else:
+        lbl = labels.max(-1)
+    return lbl.astype(labels.dtype)
 
 
 class CPNTargetGenerator:

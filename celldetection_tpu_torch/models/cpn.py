@@ -34,6 +34,7 @@ from ..ops.commons import clip, downsample_labels, interpolate_nchw, process_sco
 from ..ops.cpn import (batched_box_nms, fouriers2contours, order_weighting,
                        rel_location2abs_location, scale_contours, scale_fourier)
 from ..util.device import resolve_device
+from ..util.init import torch_init_
 from . import fpn as fpn_lib
 from . import unet as unet_lib
 from .commons import Dropout2d, FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
@@ -543,9 +544,14 @@ class CPN(nn.Module):
             x = x.float() / 255.
         return x.to(device=self.device, dtype=torch.float32)
 
-    def forward(self, inputs, nms: bool = True, score_thresh=None, scores_lower_bound=None,
-                scores_upper_bound=None) -> dict:
+    def forward(self, inputs, targets: Optional[dict] = None, nms: bool = True,
+                score_thresh=None, scores_lower_bound=None, scores_upper_bound=None) -> dict:
         """Per-image ragged results for a (batch of) image(s).
+
+        With ``targets`` (the batch of
+        :func:`..data.targets.collate_cpn_targets`, numpy or tensors) the
+        result holds ``loss`` and ``losses`` as well, as the reference's
+        ``CPN.forward`` does.
 
         A single image larger than ``max_imsize`` goes through tiled inference
         (``nms`` and the score bounds do not apply there): the results are in
@@ -558,6 +564,8 @@ class CPN(nn.Module):
             from ..parallel.tiles import TiledInference
             if x.shape[0] != 1:
                 raise ValueError(f'auto-tiled forward takes a single image, got {x.shape[0]}')
+            if targets is not None:
+                raise ValueError('auto-tiled forward is inference only: it takes no targets')
             tiled = TiledInference(self, tile_size=self.tile_size, stride=self.tile_stride)
             res = tiled(x[0].cpu().numpy(), score_thresh=score_thresh)
             out = {k: ([v] if isinstance(v, np.ndarray) else v) for k, v in res.items()}
@@ -565,7 +573,9 @@ class CPN(nn.Module):
             out.setdefault('contour_proposals', None)
             out.setdefault('box_uncertainties', None)
             return out
-        out = self.forward_padded(x, score_thresh=score_thresh, nms=nms,
+        if targets is not None:
+            targets = {k: torch.as_tensor(v).to(x.device) for k, v in targets.items()}
+        out = self.forward_padded(x, score_thresh=score_thresh, nms=nms, targets=targets,
                                   scores_lower_bound=scores_lower_bound,
                                   scores_upper_bound=scores_upper_bound)
         return self.detach(out)
@@ -583,6 +593,10 @@ class CPN(nn.Module):
                 continue
             v = v.cpu().numpy()
             result[k] = [v[i][valid[i]] for i in range(v.shape[0])]
+        if 'loss' in out:
+            result['loss'] = out['loss'].detach().cpu().numpy()
+            result['losses'] = {k: (None if v is None else v.detach().cpu().numpy())
+                                for k, v in out['losses'].items()}
         capacity = valid.shape[1]
         result['fg_overflow'] = [bool(c > capacity) for c in out['fg_count'].cpu().numpy()]
         return result
@@ -596,15 +610,21 @@ def register_model(fn):
     return fn
 
 
-def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None, **kwargs):
+def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None,
+              torch_init: bool = True, seed: int = 0, **kwargs):
+    """Build a CPN; ``torch_init`` re-draws its decoder's convolutions to the
+    reference's init (:func:`..util.init.torch_init_`) from ``seed``, as the
+    JAX package's ``CPN.init`` does by default."""
     device = resolve_device(device)   # fail before building on a card-less host
     backbone_kwargs = dict(backbone_kwargs or {})
     if backbone_kwargs.pop('pretrained', False):
         raise NotImplementedError('pretrained backbone weights are not ported yet: they come '
-                                  'with checkpoint I/O')
+                                  'with the slice of the command-line interface')
     backbone = backbone_fn(in_channels, 0, backbone_kwargs=dict(backbone_kwargs))
     model = CPN(backbone=backbone, device=device, **kwargs)
     model.hparams.update(in_channels=in_channels, backbone_kwargs=backbone_kwargs)
+    if torch_init:
+        torch_init_(model, seed=seed)
     return model
 
 

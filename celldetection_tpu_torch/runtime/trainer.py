@@ -1,29 +1,53 @@
-"""CPN training and prediction on one card.
+"""CPN training, validation and prediction on one card.
 
 Counterpart of ``celldetection_tpu/runtime/trainer.py``: ``CPNTrainer`` with
 ``__init__`` (49-85), ``_make_batch`` (89-122), ``fit`` (124-253),
-``gather_item_records`` (255-278) and ``predict`` (379-401). Validation with
-its hyperparameter sweep, checkpoints, the metrics logger, figure logging
-and a device mesh belong to later slices of the port and raise here.
+``gather_item_records`` (255-278), ``validate`` (282-357), the
+hyperparameters of prediction (360-377), ``predict`` (379-401) and the
+msgpack checkpoints (420-482). The metrics logger, figure logging and a
+device mesh belong to later slices of the port and raise here.
 """
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from itertools import product
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.cpn import contours2labels
+from ..data.instance_eval import LabelMatcher, LabelMatcherList
 from ..data.misc import random_crop, random_pad
 from ..data.targets import collate_cpn_targets, cpn_targets_single
 from ..parallel.train import DDP_SLICE, TrainState, make_train_step
+from ..util._msgpack import msgpack_restore, msgpack_serialize, packb, unpackb
 from ..util.config import conf2optimizer
+from ..util.serialization import _body_layout
+from ..util.weights import jax_variables_from_state_dict, state_dict_from_jax
 
 __all__ = ['CPNTrainer']
 
-VALIDATE_SLICE = ('validation (the hyperparameter sweep with instance matching, '
-                  'data/instance_eval.py) is not ported yet; it comes with the validate slice')
-CHECKPOINT_SLICE = ('checkpoints are not ported yet; they come with the slice of checkpoint '
-                    'I/O and the command-line interface')
+def _numpy_tree(obj):
+    """A state dict with every tensor as a numpy array (msgpack-ready)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _numpy_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_numpy_tree(v) for v in obj]
+    return obj
+
+
+def _torch_tree(obj):
+    """The inverse of :func:`_numpy_tree`: numpy arrays become CPU tensors."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(np.array(obj))
+    if isinstance(obj, dict):
+        return {k: _torch_tree(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_torch_tree(v) for v in obj]
+    return obj
 
 
 class CPNTrainer:
@@ -37,7 +61,12 @@ class CPNTrainer:
             Adam at 1e-3 when None.
         scheduler: Optional ``step -> lr multiplier`` (:mod:`..optim`,
             :func:`..util.config.conf2scheduler`); step 0 is the first update.
-        max_imsize: :meth:`predict` tiles inputs larger than this.
+        val_hparams: The sweep of :meth:`validate`, model attributes to
+            their values, e.g. ``{'score_thresh': [.5, .86, .88, .9, .92]}``
+            (the default, as the reference's ``lightning_cpn.py:36-39``).
+        checkpoint_dir: :meth:`fit` writes ``last.ckpt`` there every epoch.
+        max_imsize: :meth:`predict` and :meth:`validate` tile inputs larger
+            than this.
         ema_decay: Decay of the loss's moving average.
         seed: Seeds the host pipeline (shuffles, per-item seeds) and the
             ``torch.Generator`` of the training steps' random draws.
@@ -51,15 +80,13 @@ class CPNTrainer:
                  log_figures_every: int = 0):
         if mesh is not None:
             raise NotImplementedError(DDP_SLICE)
-        if val_hparams is not None:
-            raise NotImplementedError(VALIDATE_SLICE)
-        if checkpoint_dir is not None:
-            raise NotImplementedError(CHECKPOINT_SLICE)
         if metrics_logger is not None or log_figures_every:
             raise NotImplementedError('the metrics logger and figure logging are not ported '
-                                      'yet; they come with the slice of checkpoint I/O and '
-                                      'the command-line interface')
+                                      'yet; they come with the slice of the command-line '
+                                      'interface')
         self.model = model
+        self.val_hparams = val_hparams or {'score_thresh': [.5, .86, .88, .9, .92]}
+        self.checkpoint_dir = checkpoint_dir
         if optimizer is None:
             optimizer = conf2optimizer({'Adam': {'lr': 1e-3}})
         elif isinstance(optimizer, dict):
@@ -78,6 +105,11 @@ class CPNTrainer:
         self._ema_loss = None
         self._tiled = None
         self.history: List[dict] = []
+        self.best_hparams: Dict[str, float] = {}
+        # what the last validate() measured: per setting its metrics and
+        # per-image counts, and the seconds of its stages
+        self.val_results: List[dict] = []
+        self.val_seconds: Dict[str, float] = {}
 
     # --- training -----------------------------------------------------------
 
@@ -123,11 +155,12 @@ class CPNTrainer:
         thread pool while the card runs the current step. The epoch order is
         shuffled from the trainer's seed (or, with ``adaptive_sampling``,
         drawn with weights from each item's loss); a last partial batch is
-        filled with the epoch's first items. Returns ``history``: per epoch
-        the last loss and its moving average.
+        filled with the epoch's first items. Every ``val_every`` epochs,
+        ``val_data`` is validated (and the model calibrated,
+        :meth:`validate`); with ``checkpoint_dir`` each epoch ends by writing
+        ``last.ckpt``. Returns ``history``: per epoch the last loss and its
+        moving average.
         """
-        if val_data is not None:
-            raise NotImplementedError(VALIDATE_SLICE)
         samples = samples or self.model.samples
         order = order or self.model.order
         n = len(train_data)
@@ -186,6 +219,10 @@ class CPNTrainer:
                 self.log_fn(f'epoch {epoch}: loss={loss:.4f} ema={self._ema_loss:.4f} '
                             f'({time.time() - t0:.1f}s)')
                 self.history.append({'epoch': epoch, 'loss': loss, 'ema_loss': self._ema_loss})
+                if val_data is not None and (epoch + 1) % val_every == 0:
+                    self.validate(val_data)
+                if self.checkpoint_dir:
+                    self.save_checkpoint(os.path.join(self.checkpoint_dir, 'last.ckpt'))
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
             self.model.eval()
@@ -195,26 +232,39 @@ class CPNTrainer:
         """The epoch's per-item loss records (one process: this one's)."""
         return getattr(self, 'item_record', {})
 
-    def validate(self, val_data, *args, **kwargs):
-        raise NotImplementedError(VALIDATE_SLICE)
-
-    def save_checkpoint(self, path: str, *args, **kwargs):
-        raise NotImplementedError(CHECKPOINT_SLICE)
-
-    def load_checkpoint(self, path: str, *args, **kwargs):
-        raise NotImplementedError(CHECKPOINT_SLICE)
-
     # --- prediction ---------------------------------------------------------
 
-    def _predict_single(self, image: np.ndarray, score_thresh=None) -> dict:
-        if max(image.shape[:2]) > self.max_imsize:
-            if self._tiled is None:
-                from ..parallel.tiles import TiledInference
-                self._tiled = TiledInference(self.model, tile_size=self.tile_size,
-                                             stride=self.tile_stride)
-            return self._tiled(image, score_thresh=score_thresh)
-        out = self.model(image, score_thresh=score_thresh)
-        return {k: (v[0] if isinstance(v, list) else v) for k, v in out.items()}
+    def _apply_model_hparams(self, hparams: dict) -> dict:
+        """Set model attributes (``nms_thresh``, ...) and return their
+        previous values; the cached tiled runner is dropped when one changes."""
+        saved, changed = {}, False
+        for k, v in hparams.items():
+            if not hasattr(self.model, k):
+                raise AttributeError(f'Unknown model hparam for prediction: {k!r}')
+            cur = getattr(self.model, k)
+            saved[k] = cur
+            if cur != v:
+                setattr(self.model, k, v)
+                changed = True
+        if changed:
+            self._tiled = None
+        return saved
+
+    def _predict_single(self, image: np.ndarray, **hparams) -> dict:
+        score_thresh = hparams.pop('score_thresh', None)
+        saved = self._apply_model_hparams(hparams) if hparams else {}
+        try:
+            if max(image.shape[:2]) > self.max_imsize:
+                if self._tiled is None:
+                    from ..parallel.tiles import TiledInference
+                    self._tiled = TiledInference(self.model, tile_size=self.tile_size,
+                                                 stride=self.tile_stride)
+                return self._tiled(image, score_thresh=score_thresh)
+            out = self.model(image, score_thresh=score_thresh)
+            return {k: (v[0] if isinstance(v, list) else v) for k, v in out.items()}
+        finally:
+            if saved:
+                self._apply_model_hparams(saved)
 
     def predict(self, images) -> List[dict]:
         """Predict on one or more images (tiled when larger than ``max_imsize``)."""
@@ -222,3 +272,135 @@ class CPNTrainer:
         if isinstance(images, np.ndarray) and images.ndim <= 3:
             images = [images]
         return [self._predict_single(np.asarray(im, np.float32)) for im in images]
+
+    # --- validation sweep and calibration -----------------------------------
+
+    def validate(self, val_data, iou_threshs: Sequence[float] = (.5, .6, .7, .8, .9),
+                 calibrate: bool = True, reduce_fn=None, fast_labels: bool = False,
+                 distributed: bool = False) -> Dict[str, float]:
+        """Validation over the ``val_hparams`` sweep, with self-calibration.
+
+        For every combination of ``val_hparams`` values, each item of
+        ``val_data`` (``(image, labels)`` or ``(image, labels, classes)``)
+        is predicted (tiled above ``max_imsize``), its contours rendered to a
+        label image (:func:`..data.cpn.contours2labels`, whose channels keep
+        overlaps; with ``fast_labels`` the native flat fill of
+        :func:`..native.contours2labels_native`) and matched against its
+        labels (:class:`..data.instance_eval.LabelMatcher`). The metrics are
+        reduced over ``iou_threshs``; ``reduce_fn`` sums the counts over
+        processes. With ``calibrate`` the best setting by ``f1_np`` is set on
+        the model. Returns the best setting's metrics with ``best_hparams``.
+        """
+        if distributed:
+            raise NotImplementedError(DDP_SLICE)
+        self.model.eval()
+        keys = list(self.val_hparams.keys())
+        results, self.val_results = {}, []
+        seconds = {'forward': 0., 'labels': 0., 'matching': 0.}
+        for combo in product(*self.val_hparams.values()):
+            setting = dict(zip(keys, combo))
+            combo_saved = self._apply_model_hparams(
+                {k: v for k, v in setting.items() if k != 'score_thresh'})
+            matchers = LabelMatcherList(reduce_fn=reduce_fn)
+            for item in val_data:
+                image, labels = item[0], item[1]
+                if image.ndim == 2:
+                    image = image[..., None]
+                t0 = time.perf_counter()
+                pred = self._predict_single(np.asarray(image, np.float32),
+                                            score_thresh=setting.get('score_thresh'))
+                t1 = time.perf_counter()
+                h, w = image.shape[:2]
+                if fast_labels:
+                    from ..native import contours2labels_native
+                    pred_labels = contours2labels_native(list(pred['contours']), (h, w))
+                else:
+                    pred_labels = contours2labels(list(pred['contours']), (h, w))
+                t2 = time.perf_counter()
+                matchers.append(LabelMatcher(pred_labels, labels))
+                seconds['forward'] += t1 - t0
+                seconds['labels'] += t2 - t1
+                seconds['matching'] += time.perf_counter() - t2
+            t0 = time.perf_counter()
+            metrics, counts = {}, []
+            for it in iou_threshs:
+                matchers.iou_thresh = it
+                metrics[f'f1_np_{it}'] = matchers.f1_np
+                metrics[f'avg_f1_{it}'] = matchers.avg_f1
+                metrics[f'jaccard_np_{it}'] = matchers.jaccard_np
+                counts.append([(m.true_positives, m.false_positives, m.false_negatives)
+                               for m in matchers])
+            metrics['f1_np'] = float(np.mean([metrics[f'f1_np_{t}'] for t in iou_threshs]))
+            metrics['avg_f1'] = float(np.mean([metrics[f'avg_f1_{t}'] for t in iou_threshs]))
+            seconds['matching'] += time.perf_counter() - t0
+            results[combo] = metrics
+            # counts [image, IoU threshold, (TP, FP, FN)]
+            self.val_results.append({'setting': setting, 'metrics': metrics,
+                                     'counts': np.array(counts).transpose(1, 0, 2)})
+            self.log_fn(f'val {setting}: f1_np={metrics["f1_np"]:.4f}')
+            self._apply_model_hparams(combo_saved)
+        self.val_seconds = seconds
+        best_combo = max(results, key=lambda c: results[c]['f1_np'])
+        # plain python numbers: best_hparams lands in msgpack checkpoints
+        self.best_hparams = {k: (v.item() if isinstance(v, np.generic) else v)
+                             for k, v in zip(keys, best_combo)}
+        if calibrate:
+            for k, v in self.best_hparams.items():
+                setattr(self.model, k, v)
+            self._tiled = None
+            self.log_fn(f'calibrated: {self.best_hparams} '
+                        f'(f1_np={results[best_combo]["f1_np"]:.4f})')
+        out = dict(results[best_combo])
+        out['best_hparams'] = self.best_hparams
+        return out
+
+    # --- checkpointing ------------------------------------------------------
+
+    def save_checkpoint(self, path: str, backend: str = 'msgpack'):
+        """Save the weights, the optimizer, the step, the random state and
+        ``best_hparams`` to one msgpack file.
+
+        ``variables`` is flax's encoding of the JAX-layout tree, so the JAX
+        package reads the weights (``flax.serialization.msgpack_restore``);
+        ``opt_state`` holds the optimizer's and the schedule's state dicts,
+        ``rng`` the state of the steps' ``torch.Generator`` and the count of
+        ``fit`` calls that seeds the host pipeline.
+        """
+        if backend == 'orbax':
+            raise NotImplementedError('Orbax is the JAX package\'s checkpointer; the port '
+                                      'writes msgpack checkpoints (backend="msgpack")')
+        encoder, fused = _body_layout(self.model)
+        sched = self.state.scheduler
+        payload = {
+            'variables': msgpack_serialize(
+                jax_variables_from_state_dict(self.model.state_dict(), fused, encoder)),
+            'opt_state': packb(_numpy_tree({
+                'optimizer': self.state.optimizer.state_dict(),
+                'scheduler': None if sched is None else sched.state_dict()})),
+            'step': self.state.step,
+            'rng': {'generator': self.generator.get_state().numpy(),
+                    'np_seed_counter': self._np_seed_counter},
+            'best_hparams': self.best_hparams,
+        }
+        os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+        with open(path, 'wb') as f:
+            f.write(packb(payload))
+
+    def load_checkpoint(self, path: str, backend: str = 'msgpack'):
+        """Restore what :meth:`save_checkpoint` wrote into this trainer."""
+        if backend == 'orbax':
+            raise NotImplementedError('Orbax is the JAX package\'s checkpointer; the port '
+                                      'reads msgpack checkpoints (backend="msgpack")')
+        with open(path, 'rb') as f:
+            payload = unpackb(f.read())
+        _, fused = _body_layout(self.model)
+        self.model.load_state_dict(state_dict_from_jax(msgpack_restore(payload['variables']),
+                                                       fused), strict=True)
+        opt = _torch_tree(unpackb(payload['opt_state']))
+        self.state.optimizer.load_state_dict(opt['optimizer'])
+        if self.state.scheduler is not None and opt['scheduler'] is not None:
+            self.state.scheduler.load_state_dict(opt['scheduler'])
+        self.state.step = payload['step']
+        self.generator.set_state(torch.from_numpy(np.array(payload['rng']['generator'])))
+        self._np_seed_counter = payload['rng']['np_seed_counter']
+        self.best_hparams = payload.get('best_hparams', {})

@@ -9,20 +9,23 @@ body (348-398), the U-Net decoder with its bias-free bridges, and the FPN
 BatchNorm ``scale``/``bias``/``mean``/``var`` →
 ``weight``/``bias``/``running_mean``/``running_var``) under the keys the port's
 modules carry, so ``load_state_dict(..., strict=True)`` takes it.
-``init_jax_variables`` goes the other way, to make seeded random weights in
-the JAX layout for a port model.
+``jax_variables_from_state_dict`` is its inverse (OIHW back to HWIO), the
+tree that flax's ``from_bytes`` restores into a JAX model.
+``init_jax_variables`` makes seeded random weights in the JAX layout for a
+port model.
 
 A ResNet body's JAX variables are the same for ``fused_initial`` True and
 False (only the torch keys of the stem and ``layer1`` differ), so the layout
 is an explicit argument, False by default as in every zoo constructor.
 """
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ['state_dict_from_jax', 'init_jax_variables']
+__all__ = ['state_dict_from_jax', 'jax_variables_from_state_dict', 'init_jax_variables',
+           'detect_encoder_layout']
 
 _NORM_LEAVES = {('params', 'scale'): 'weight', ('params', 'bias'): 'bias',
                 ('batch_stats', 'mean'): 'running_mean', ('batch_stats', 'var'): 'running_var'}
@@ -177,12 +180,55 @@ def state_dict_from_jax(variables, fused_initial: bool = False) -> Dict[str, tor
     out = {}
     for coll, tree in variables.items():
         for path, v in _flatten(tree):
-            v = np.asarray(v)
             key = _port_key(coll, path, fused_initial)
+            t = torch.from_numpy(np.array(v))   # an owned copy
             if path[-1] == 'kernel':
-                v = np.transpose(v, (3, 2, 0, 1))   # HWIO -> OIHW
-            out[key] = torch.from_numpy(np.array(v))   # an owned, contiguous copy
+                # HWIO -> OIHW, in torch: a threaded copy, where numpy's is not
+                t = t.permute(3, 2, 0, 1).contiguous()
+            out[key] = t
     return out
+
+
+def detect_encoder_layout(state_dict) -> Tuple[str, bool]:
+    """Infer ``(encoder, fused_initial)`` from torch-layout keys.
+
+    A ResNet body contains ``convN``/``bnN`` leaf names; a fused stem puts
+    layer1 at ``body.0.4`` while the reference's UNet/FPN default
+    (``fused_initial=False``) puts it under ``body.1.1``.
+    """
+    body = [re.sub(r'^(core\.)?backbone\.body\.', '', k) for k in state_dict
+            if re.match(r'(core\.)?backbone\.body\.', k)]
+    encoder = 'resnet' if any('.conv1.' in k or '.bn1.' in k or 'downsample' in k
+                              for k in body) else 'unet'
+    fused = any(k.startswith('0.4.') for k in body)
+    return encoder, fused
+
+
+def _set_path(tree: dict, path, value):
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
+
+
+def jax_variables_from_state_dict(state_dict, fused_initial: bool = False,
+                                  encoder: Optional[str] = None) -> dict:
+    """The port's state dict → JAX CPN variables ``{'params', 'batch_stats'}``
+    as nested dicts of numpy arrays (conv OIHW → HWIO): the inverse of
+    :func:`state_dict_from_jax`.
+
+    ``fused_initial``: the layout of a ResNet body; ``encoder`` (``'unet'``
+    or ``'resnet'``) is read from the keys when None.
+    """
+    if encoder is None:
+        encoder, _ = detect_encoder_layout(state_dict)
+    variables = {}
+    for key, t in state_dict.items():
+        coll, path, is_kernel = _jax_path(key, encoder, fused_initial)
+        t = torch.as_tensor(t).detach()
+        if is_kernel:
+            t = t.permute(2, 3, 1, 0)   # OIHW -> HWIO, on the tensor's device
+        _set_path(variables.setdefault(coll, {}), path, t.contiguous().cpu().numpy())
+    return variables
 
 
 def init_jax_variables(model: torch.nn.Module, seed: int = 0) -> dict:
@@ -211,8 +257,5 @@ def init_jax_variables(model: torch.nn.Module, seed: int = 0) -> dict:
             v = rng.uniform(0.5, 1.5, shape)
         else:   # conv and norm biases, running means
             v = 0.1 * rng.randn(*shape)
-        node = variables.setdefault(coll, {})
-        for name in path[:-1]:
-            node = node.setdefault(name, {})
-        node[path[-1]] = v.astype(np.float32)
+        _set_path(variables.setdefault(coll, {}), path, v.astype(np.float32))
     return variables

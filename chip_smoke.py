@@ -62,7 +62,23 @@ Phases, in order; any failure exits non-zero:
      targets, the device's idle share, peak memory and the 10 slowest
      device kernels of one step; (c) 30 steps on one fixed batch (the last
      loss below the first), then ``CPNTrainer.predict`` on two held-out
-     256^2 images, which launches the NMS kernels (``launches_train``).
+     256^2 images, which launches the NMS kernels (``launches_train``);
+ 12. checkpoint I/O on the card: the trained CpnU12 of
+     ``tests/fixtures/cpnu12_trained.cdt`` through the port's ``load_model``,
+     on the card against the CPU under phase 4's gates; the flagship saved
+     with ``save_model`` and loaded with ``load_model`` (file size, seconds,
+     state dicts and forwards bit-equal); phase 11c's trainer saved with
+     ``save_checkpoint``, loaded into a new ``CPNTrainer``, and one more
+     epoch from both with ``cudnn.deterministic`` (losses bit-equal); none
+     of msgpack, flax or h5py imported;
+ 13. validation: full-width CpnU22 with phase 11c's weights,
+     ``fit(val_data=, val_every=1)`` and ``validate`` (with the
+     channelled labels and with ``fast_labels``) over a sweep of 3 score and
+     2 NMS thresholds on 4 held-out 512^2 disk images: each setting's
+     ``f1_np`` and counts, ``best_hparams``, seconds per image and setting
+     on the card and on the host, the NMS kernels' launches (one of each per
+     image and setting, ``launches_validate``), and the card's counts and
+     ``best_hparams`` against the CPU's, TF32 off.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -71,6 +87,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -86,11 +103,13 @@ from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_block
                                                _suppression_counts, _suppression_matrix,
                                                _suppression_pairs, box_iou, nms_chunked,
                                                nms_padded, sort_by_score)
-from celldetection_tpu_torch.data import collate_cpn_targets, cpn_targets_single
+from celldetection_tpu_torch.data import collate_cpn_targets, contours2labels, cpn_targets_single
+from celldetection_tpu_torch.native import contours2labels_native, rasterize_library
 from celldetection_tpu_torch.parallel.tiles import TiledInference, tile_image
 from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
 from celldetection_tpu_torch.runtime.trainer import CPNTrainer
 from celldetection_tpu_torch.util.config import conf2optimizer
+from celldetection_tpu_torch.util.serialization import load_model, load_model_meta, save_model
 from celldetection_tpu_torch.util.weights import init_jax_variables, state_dict_from_jax
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -526,19 +545,23 @@ def phase_kernels(rng, card, errs):
     return floor
 
 
-def phase_card_vs_cpu(rng, title, build, tame=False):
+def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 2048)):
     """The model ``build(device=...)`` makes at 256^2, the card against the
     CPU, TF32 off: dense heads, valid sets before and after NMS, classes and
-    contours (phases 4 and 8)."""
+    contours (phases 4, 8 and 12). The models get seeded random weights
+    unless ``image`` (``[1, 256, 256, C]``) is given: then they hold their
+    own. The score threshold leaves ``counts`` pixels above it."""
     print(f'== {title} at {CHECK_SIZE}^2, card vs CPU, TF32 off', flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cpu_m = build(device='cpu')
-    sd = random_weights(cpu_m, tame)
-    cpu_m.load_state_dict(sd, strict=True)
     gpu_m = build()
-    gpu_m.load_state_dict(sd, strict=True)
-    x = torch.from_numpy(rng.rand(1, CHECK_SIZE, CHECK_SIZE, 3).astype(np.float32))
+    if image is None:
+        sd = random_weights(cpu_m, tame)
+        cpu_m.load_state_dict(sd, strict=True)
+        gpu_m.load_state_dict(sd, strict=True)
+        image = rng.rand(1, CHECK_SIZE, CHECK_SIZE, 3).astype(np.float32)
+    x = torch.from_numpy(image)
     t0 = time.perf_counter()
     with torch.no_grad():
         dc = cpu_m.core(x)
@@ -569,7 +592,7 @@ def phase_card_vs_cpu(rng, title, build, tame=False):
     else:
         p_cpu = torch.sigmoid(dc['scores'])
         p_err = float((torch.sigmoid(dg['scores']) - p_cpu).abs().max())
-        thresh, gap = threshold_in_gap(p_cpu.numpy(), 500, 2048)
+        thresh, gap = threshold_in_gap(p_cpu.numpy(), *counts)
         ambiguous = set()
         check(gap > 4 * p_err, f'score gap {gap} too narrow for the card-cpu difference {p_err}')
     outs = {}
@@ -1131,10 +1154,21 @@ def phase_train_card_vs_cpu():
           f'{worst}: {e_card[worst]:.2e} (CPU {e_cpu[worst]:.2e})', flush=True)
 
 
+def reset_launches():
+    for k in kernels.KERNELS:
+        k.launches = 0
+
+
+def read_launches():
+    torch.cuda.synchronize()
+    return {k.__name__: k.launches for k in kernels.KERNELS}
+
+
 def phase_train(card):
     """Phases 11b and 11c: ``CPNTrainer.fit`` on scripts/bench_train.py's
     workload, then 30 steps on one batch and ``CPNTrainer.predict``.
-    Returns the NMS kernels' launches in ``predict``."""
+    Returns the NMS kernels' launches in ``predict``, the trainer and the
+    images of its fixed batch."""
     print(f'== phase 11b: training, CpnU22 (full width, one channel), {TRAIN_SIZE}^2, batch '
           f'{TRAIN_BATCH}, samples {TRAIN["samples"]}, K {TRAIN["max_detections"]}, Adam 5e-4, '
           f'prefetch 1, {TRAIN_IMAGES} images of 24 disks (scripts/bench_train.py)', flush=True)
@@ -1195,18 +1229,215 @@ def phase_train(card):
           flush=True)
     check(losses[-1] < losses[0], 'the loss did not fall on a fixed batch')
     held = [im for im, _ in disk_images(2, TRAIN_SIZE, SEED + 99)]
-    for k in kernels.KERNELS:
-        k.launches = 0
+    reset_launches()
     preds = trainer.predict(held)
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches = read_launches()
     print(f'  predict: {[len(p["contours"]) for p in preds]} detections; NMS kernel launches '
           f'{launches}', flush=True)
     check(all(n > 0 for n in launches.values()), 'predict launched no NMS kernel')
     for p in preds:
         check(p['contours'].shape[1:] == (TRAIN['samples'], 2) and all(
             np.isfinite(p[k]).all() for k in ('contours', 'boxes', 'scores')), 'predict: bad results')
-    return launches
+    # batches[1], the fixed batch, holds items 8-15
+    return launches, trainer, data[TRAIN_BATCH:2 * TRAIN_BATCH]
+
+
+def phase_checkpoints(rng, card, trainer, fixed, ckpt):
+    """Phase 12: checkpoint I/O on the card. The trained fixture from its cdt
+    file on the card against the CPU; the flagship saved and loaded (state
+    dicts and forwards bit-equal); phase 11c's trainer saved to ``ckpt`` and
+    loaded into a new trainer, and one more epoch from both (losses
+    bit-equal)."""
+    fixture = os.path.join(HERE, 'tests', 'fixtures', 'cpnu12_trained.cdt')
+    image = disk_images(1, CHECK_SIZE, SEED + 5)[0][0][None]
+    # K above the score map's pixels above the threshold: no capacity cut
+    phase_card_vs_cpu(rng, 'phase 12a: the trained CpnU12 of tests/fixtures/cpnu12_trained.cdt '
+                      '(load_model, K 4096)',
+                      lambda **kw: load_model(fixture, max_detections=4096, **kw),
+                      image=image, counts=(100, 3000))
+
+    print('== phase 12b: the flagship CpnResNeXt101UNet (full width and depth) saved and loaded '
+          'on the card (cdt file)', flush=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    model = models.CpnResNeXt101UNet(in_channels=3, **FLAGSHIP)
+    model.load_state_dict(random_weights(model, tame=True), strict=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, 'flagship.cdt')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_model(fn, model, meta={'purpose': 'chip_smoke phase 12'})
+        save_s = time.perf_counter() - t0
+        mib = os.path.getsize(fn) / 2 ** 20
+        t0 = time.perf_counter()
+        loaded = load_model(fn)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(load_model_meta(fn)['purpose'] == 'chip_smoke phase 12', 'file meta lost')
+    want, got = model.state_dict(), loaded.state_dict()
+    check(sorted(want) == sorted(got) and all(torch.equal(want[k], got[k]) for k in want),
+          'the loaded flagship differs from the saved one')
+    check(loaded.device.type == 'cuda' and loaded.samples == FLAGSHIP['samples'] and
+          loaded.nms_thresh == FLAGSHIP['nms_thresh'], 'the loaded flagship lost its settings')
+    x = torch.rand(1, CHECK_SIZE, CHECK_SIZE, 3, generator=torch.Generator().manual_seed(SEED))
+    outs = [m.forward_padded(x.cuda(), score_thresh=0.5) for m in (model, loaded)]
+    same = all(torch.equal(outs[0][k], outs[1][k]) for k in ('scores', 'boxes', 'contours',
+                                                             'valid', 'fourier'))
+    check(same, 'the loaded flagship\'s forward differs')
+    print(f'  [{card}] {len(want)} tensors, {sum(t.numel() for t in want.values())} values: '
+          f'file {mib:.1f} MiB, save_model {save_s:.2f} s, load_model onto the card '
+          f'{load_s:.2f} s; state dict and forward ({int(outs[0]["valid"].sum())} detections at '
+          f'{CHECK_SIZE}^2) bit-equal', flush=True)
+    del model, loaded, outs
+
+    print('== phase 12c: phase 11c\'s trainer saved, loaded into a new CPNTrainer, one more '
+          'epoch from both', flush=True)
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(ckpt)
+    save_s = time.perf_counter() - t0
+    resumed = CPNTrainer(models.CpnU22(in_channels=1, **TRAIN),
+                         optimizer={'Adam': {'lr': 5e-4}}, log_fn=lambda *a: None, seed=SEED)
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(ckpt)
+    load_s = time.perf_counter() - t0
+    check(resumed.state.step == trainer.state.step, 'the step was not restored')
+    fit = dict(epochs=1, batch_size=TRAIN_BATCH, crop_size=TRAIN_SIZE, prefetch=1)
+    losses = [t.fit(fixed, **fit)[-1]['loss'] for t in (trainer, resumed)]
+    print(f'  [{card}] checkpoint {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB, saved in {save_s:.2f} '
+          f's, loaded in {load_s:.2f} s; step {resumed.state.step - 1} -> {resumed.state.step}; '
+          f'loss of the next epoch: original {losses[0]!r}, resumed {losses[1]!r} '
+          f'(cudnn.deterministic)', flush=True)
+    check(losses[0] == losses[1], 'the resumed run\'s loss differs')
+    torch.backends.cudnn.deterministic = False
+    absent = {'msgpack', 'flax', 'h5py'} & set(sys.modules)
+    check(not absent, f'{sorted(absent)} imported')
+    print('  msgpack, flax and h5py were not imported', flush=True)
+
+
+def summed_counts(result, iou_index=0):
+    """TP, FP and FN summed over the images, at one IoU threshold."""
+    return tuple(int(v) for v in result['counts'][:, iou_index].sum(0))
+
+
+def phase_validate(card, fixed, ckpt, errs, floor):
+    """Phase 13: ``CPNTrainer.fit(val_data=)`` and ``validate`` of full-width
+    CpnU22 with phase 11c's weights on 4 held-out 512^2 images, the card
+    against the CPU; the NMS call of one validation forward held against its
+    plain version and timed. Returns the NMS kernels' launches in one
+    ``validate``."""
+    hparams = {'score_thresh': [.5, .7, .9], 'nms_thresh': [.2, .5]}
+    settings = len(hparams['score_thresh']) * len(hparams['nms_thresh'])
+    val = disk_images(4, 512, SEED + 13, num=48)
+    print(f'== phase 13: validation, CpnU22 (full width, one channel, phase 11c\'s weights), '
+          f'{len(val)} held-out 512^2 images, sweep {hparams}', flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    trainer = CPNTrainer(models.CpnU22(in_channels=1, **TRAIN), optimizer={'Adam': {'lr': 5e-4}},
+                         val_hparams=hparams, log_fn=lambda *a: None, seed=SEED)
+    trainer.load_checkpoint(ckpt)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(fixed, epochs=1, batch_size=TRAIN_BATCH, crop_size=TRAIN_SIZE, val_data=val,
+                val_every=1)
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f'  fit(val_data=, val_every=1): one step and one validate in {fit_s:.2f} s; best '
+          f'{trainer.best_hparams}; NMS kernel launches {launches}', flush=True)
+    check(all(n == settings * len(val) for n in launches.values()),
+          f'fit(val_data=) launched {launches}, not {settings * len(val)} of each kernel')
+    check(all(getattr(trainer.model, k) == v for k, v in trainer.best_hparams.items()),
+          'fit did not calibrate the model')
+
+    # the native fill of fast_labels, built with g++ before the timed runs; a
+    # failed build fails here (validate itself would fall back to the render)
+    t0 = time.perf_counter()
+    rasterize_library()
+    build_s = time.perf_counter() - t0
+    pred = trainer._predict_single(val[0][0])
+    flat = contours2labels_native(list(pred['contours']), val[0][1].shape[:2], fallback=False)
+    ref = contours2labels(list(pred['contours']), flat.shape).max(-1) > 0
+    union = int((ref | (flat > 0)).sum())
+    overlap = int((ref & (flat > 0)).sum()) / max(union, 1)
+    check(flat.dtype == np.int32 and flat.max() <= len(pred['contours']) and
+          (union == 0 or overlap >= 0.5), f'native fill: bad labels (overlap {overlap})')
+    print(f'  native rasterizer (celldetection_tpu_torch/native/rasterize.cpp) built and loaded in '
+          f'{build_s:.2f} s; its foreground on one image against the channelled render: IoU '
+          f'{overlap:.4f}', flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for fast in (False, True):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = trainer.validate(val, fast_labels=fast)
+        wall = time.perf_counter() - t0
+        runs[fast] = (out, [dict(r) for r in trainer.val_results], dict(trainer.val_seconds),
+                      read_launches())
+        sec = trainer.val_seconds
+        n = settings * len(val)
+        print(f'  [{card}] validate(fast_labels={fast}) (TF32 off): {wall:.2f} s for {settings} '
+              f'settings x {len(val)} images; per image and setting {1e3 * wall / n:.1f} ms: '
+              f'forward on the card with readback {1e3 * sec["forward"] / n:.1f} ms, host labels '
+              f'{1e3 * sec["labels"] / n:.1f} ms, host matching {1e3 * sec["matching"] / n:.1f} '
+              f'ms; best {out["best_hparams"]} (f1_np {out["f1_np"]:.4f}); NMS kernel launches '
+              f'{runs[fast][3]}', flush=True)
+        for r in runs[fast][1]:
+            print(f'    {r["setting"]}: f1_np {r["metrics"]["f1_np"]:.4f}, TP/FP/FN at IoU 0.5 '
+                  f'{summed_counts(r)}', flush=True)
+        check(all(n == settings * len(val) for n in runs[fast][3].values()),
+              f'validate launched {runs[fast][3]}, not {settings * len(val)} of each kernel')
+        check(all(getattr(trainer.model, k) == v for k, v in out['best_hparams'].items()),
+              'validate did not calibrate the model')
+        for r in runs[fast][1]:
+            check(np.isfinite(r['metrics']['f1_np']), 'validate: f1_np not finite')
+
+    # the NMS of one validation forward (the calibrated setting, first image)
+    x = torch.from_numpy(val[0][0][None]).cuda()
+    pre = trainer.model.forward_padded(x, nms=False)
+    t = trainer.model.nms_thresh
+    _, b, v = sort_by_score(pre['boxes'], pre['scores'], pre['valid'])
+    k, _, _, _ = hold_each(b, v, t, errs)
+    check(torch.equal(k, _nms_sweep(b, v, t)), 'validation NMS: the sweep and plain differ')
+    n_valid = int(v.sum())
+    ms, _ = time_sweep(f'B=1 N={v.shape[1]} t={t} (a validation forward, {n_valid} valid)', b, v,
+                       k, t, card, floor)
+    plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 3, warmup=1)
+    print(f'  [{card}] plain _nms_sweep B=1 N={v.shape[1]} (a validation forward): '
+          f'{plain_ms:.3f} ms; nms_sweep {ms:.4f} ms', flush=True)
+
+    cpu_model = models.CpnU22(in_channels=1, device='cpu', **TRAIN)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    cpu = CPNTrainer(cpu_model, val_hparams=hparams, log_fn=lambda *a: None, seed=SEED)
+    t0 = time.perf_counter()
+    cpu_out = cpu.validate(val)
+    cpu_s = time.perf_counter() - t0
+    card_out, card_results = runs[False][0], runs[False][1]
+    worst = 0
+    for rc, rg in zip(cpu.val_results, card_results):
+        check(rc['setting'] == rg['setting'], 'the sweeps differ')
+        diff = np.abs(rc['counts'] - rg['counts'])
+        worst = max(worst, int(diff.max()))
+        for i in sorted(set(np.nonzero(diff)[0].tolist())):
+            pc = cpu._predict_single(val[i][0], **rc['setting'])
+            pg = trainer._predict_single(val[i][0], **rg['setting'])
+            print(f'    {rc["setting"]} image {i}: TP/FP/FN by IoU cpu '
+                  f'{rc["counts"][i].tolist()}, card {rg["counts"][i].tolist()}; detections cpu '
+                  f'{len(pc["contours"])}, card {len(pg["contours"])}; reason: scores and '
+                  f'contour points near a threshold (max |score| diff '
+                  f'{score_gap(pc, pg):.2e})', flush=True)
+    print(f'  CPU validate {cpu_s:.1f} s ({torch.get_num_threads()} threads); best cpu {cpu_out["best_hparams"]}, card '
+          f'{card_out["best_hparams"]}; largest count difference per image {worst}', flush=True)
+    check(worst <= 1, f'card and CPU counts differ by {worst} instances in an image')
+    check(cpu_out['best_hparams'] == card_out['best_hparams'], 'best_hparams differ')
+    return runs[False][3]
+
+
+def score_gap(a, b):
+    """The largest score difference of detections the two sides share
+    (by the nearest box), for the report of a count difference."""
+    if not len(a['scores']) or not len(b['scores']):
+        return float('nan')
+    d = np.abs(a['boxes'][:, None] - b['boxes'][None]).max(-1)
+    j = d.argmin(1)
+    return float(np.abs(a['scores'] - b['scores'][j]).max())
 
 
 def main():
@@ -1257,15 +1488,21 @@ def main():
               tame=True, runs=(('bf16', torch.bfloat16, 4),))
     phase_tiled_flagship(card)
     phase_train_card_vs_cpu()
-    launches_train = phase_train(card)
-    check(not {'jax', 'celldetection_tpu', 'cv2', 'skimage'} & set(sys.modules),
-          'JAX, the JAX package, cv2 or scikit-image was imported')
+    launches_train, trainer, fixed = phase_train(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'last.ckpt')
+        phase_checkpoints(rng, card, trainer, fixed, ckpt)
+        launches_validate = phase_validate(card, fixed, ckpt, errs, floor)
+    imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py'} & \
+        set(sys.modules)
+    check(not imported, f'{sorted(imported)} imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'celldetection_tpu_torch/csrc/{SOURCES[name]}',
         'replaces': 'celldetection_tpu/kernels/nms_pallas.py:59',
         'launches': launches[name], 'launches_tiled': launches_tiled[name],
         'launches_resnet': launches_resnet[name], 'launches_train': launches_train[name],
+        'launches_validate': launches_validate[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

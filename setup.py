@@ -11,8 +11,8 @@ setup(
     license=meta['__license__'],
     packages=find_packages(include=('celldetection_tpu', 'celldetection_tpu.*',
                                     'celldetection_tpu_torch', 'celldetection_tpu_torch.*')),
-    # the port's CUDA sources, compiled by nvcc at first use
-    package_data={'celldetection_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+    # the port's CUDA sources (nvcc) and host C++ (g++), compiled at first use
+    package_data={'celldetection_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh', 'native/*.cpp']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'opencv-python',

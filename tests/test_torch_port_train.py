@@ -404,13 +404,6 @@ def test_fit_adaptive_sampling_and_unported_options():
     hist = tr.fit(data, epochs=3, batch_size=2, max_instances=16, adaptive_sampling=True)
     assert len(hist) == 3 and all(np.isfinite(h['loss']) for h in hist)
     assert set(tr.gather_item_records()) <= {0, 1, 2}
-    with pytest.raises(NotImplementedError, match='validate'):
-        tr.fit(data, val_data=data)
-    with pytest.raises(NotImplementedError, match='validate'):
-        tr.validate(data)
-    with pytest.raises(NotImplementedError, match='checkpoint'):
-        tr.save_checkpoint('x.ckpt')
-    for kw in (dict(checkpoint_dir='ckpt'), dict(mesh=object()), dict(log_figures_every=5),
-               dict(val_hparams={'score_thresh': [.5]})):
+    for kw in (dict(mesh=object()), dict(log_figures_every=5)):
         with pytest.raises(NotImplementedError):
             TTrainer(pm, **kw)
