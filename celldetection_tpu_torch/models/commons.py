@@ -1,16 +1,19 @@
 """Building blocks (``nn.Module``s, NCHW inside).
 
 Counterpart of ``celldetection_tpu/models/commons.py``: ``get_activation``
-(105-114), ``Norm`` (117-150, batchnorm branch, inference and training),
-``ConvNorm`` (203-221),
-``TwoConvNormRelu`` (242-262), ``ScaledTanh`` (269-275), ``ReadOut``
-(348-384), ``fused_head_conv`` and ``FusableReadOut`` (406-474), ``Normalize``
-(503-522).
+(105-114), ``Norm`` (117-150, every kind; batch norm in inference and
+training), ``ConvNorm`` (203-221), ``ConvNormRelu`` (224-239),
+``TwoConvNormRelu`` (242-262), ``ScaledTanh`` (269-275), ``ResBlock``
+(287-310), ``ReadOut`` (348-384), ``fused_head_conv`` and ``FusableReadOut``
+(406-474), ``Normalize`` (503-522).
 
-Submodules are ``nn.Sequential`` with the reference torch layout, so the
-state-dict keys are the ones ``export_torch_state_dict`` emits
-(``TwoConvNormRelu``: conv 0, norm 1, conv 3, norm 4; ``ReadOut.block``:
-conv0 0, norm 1, conv1 4).
+The U-Net family's submodules are ``nn.Sequential`` with the reference torch
+layout, so the state-dict keys are the ones ``export_torch_state_dict``
+emits (``TwoConvNormRelu``: conv 0, norm 1, conv 3, norm 4; ``ReadOut.block``:
+conv0 0, norm 1, conv1 4; ``ResBlock`` the same, and its projection
+``downsample.{0,1}``). The modules of the later families (``ConvNormRelu``,
+``NamedNorm``) carry the JAX package's module names instead, so that their
+keys are the flax paths joined by dots (``util.weights``).
 """
 from typing import Optional, Sequence
 
@@ -18,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ['get_activation', 'Norm', 'ConvNorm', 'TwoConvNormRelu', 'ScaledTanh', 'Normalize',
-           'Dropout2d', 'ReadOut', 'FusableReadOut', 'fused_head_conv']
+__all__ = ['get_activation', 'Norm', 'NamedNorm', 'ConvNorm', 'ConvNormRelu', 'TwoConvNormRelu',
+           'ResBlock', 'ScaledTanh', 'Normalize', 'Dropout2d', 'StochasticDepth', 'ReadOut',
+           'FusableReadOut', 'fused_head_conv', 'same_padding']
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9    # flax's convention: running = momentum * running + (1 - momentum) * batch
@@ -55,33 +59,65 @@ def get_activation(activation) -> nn.Module:
     raise ValueError(f'Unknown activation: {activation}')
 
 
+def _norm_kind(kind) -> Optional[str]:
+    """The JAX ``Norm``'s spelling rules: case and underscores ignored, 'nd' read as '2d'."""
+    if kind is None:
+        return None
+    kind = str(kind).lower().replace('_', '').replace('nd', '2d')
+    return None if kind in ('identity', 'none') else kind
+
+
 class Norm(nn.Module):
-    """Batch normalization, eps 1e-5, as flax's ``nn.BatchNorm``.
+    """The JAX ``Norm``: batch, layer, group or instance normalization of NCHW input.
 
-    In eval mode it normalises with the running statistics. In train mode
-    it normalises with the batch's mean and biased variance and updates the
-    running statistics the way flax does: ``BN_MOMENTUM`` (0.9) times the old
-    value plus ``1 - momentum`` times the batch's mean and *biased* variance,
-    computed as flax computes it, ``E[x^2] - E[x]^2`` (``F.batch_norm`` would
-    store the unbiased variance).
+    - ``'batchnorm2d'``: eps 1e-5 (``eps`` overrides it; MobileNetV3 takes
+      1e-3). In eval mode it normalises with the running statistics. In
+      train mode it normalises with the batch's mean and biased variance and
+      updates the running statistics the way flax does: ``momentum`` (flax's
+      convention, 0.9 by default) times the old value plus ``1 - momentum``
+      times the batch's mean and *biased* variance, computed as flax
+      computes it, ``E[x^2] - E[x]^2`` (``F.batch_norm`` would store the
+      unbiased variance).
+    - ``'layernorm2d'``: flax ``LayerNorm`` over the channels alone, eps 1e-5
+      (not ``GroupNorm(1)``, which would reduce over space as well).
+    - ``'groupnorm'``: flax ``GroupNorm`` with ``min(num_groups, C)`` groups,
+      eps 1e-6 (flax's default, not torch's 1e-5); ``'instancenorm2d'``: the
+      same with one group per channel.
 
-    Parameters ``weight``/``bias`` and buffers ``running_mean``/``running_var``
-    carry the reference names, without ``num_batches_tracked``, so the keys
-    equal those of ``export_torch_state_dict``. The other norm kinds of the
-    JAX ``Norm`` belong to later slices.
+    flax computes the layer and group variances as ``E[x^2] - E[x]^2``,
+    torch with two passes; in float32 they part by a few ulp of the
+    normalised values. Parameters ``weight``/``bias`` and the batch norm's
+    buffers ``running_mean``/``running_var`` carry the reference names,
+    without ``num_batches_tracked``, so the keys equal those of
+    ``export_torch_state_dict``.
     """
 
-    def __init__(self, num_features: int, kind: str = 'batchnorm2d', eps: float = BN_EPS):
+    def __init__(self, num_features: int, kind: str = 'batchnorm2d', eps: Optional[float] = None,
+                 momentum: float = BN_MOMENTUM, num_groups: int = 32):
         super().__init__()
-        if not str(kind).lower().replace('_', '').startswith('batchnorm'):
-            raise NotImplementedError(f'Norm {kind!r}: only batchnorm is ported')
-        self.eps = eps
+        self.kind = _norm_kind(kind)
+        if self.kind is None or not self.kind.startswith(
+                ('batchnorm', 'layernorm', 'groupnorm', 'instancenorm')):
+            raise ValueError(f'Unknown norm: {kind}')
+        if self.kind.startswith('batchnorm'):
+            self.eps = BN_EPS if eps is None else eps
+        else:
+            self.eps = (1e-5 if self.kind.startswith('layernorm') else 1e-6) if eps is None else eps
+        self.momentum = momentum
+        self.num_groups = num_features if self.kind.startswith('instancenorm') else \
+            min(num_groups, num_features)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer('running_mean', torch.zeros(num_features))
-        self.register_buffer('running_var', torch.ones(num_features))
+        if self.kind.startswith('batchnorm'):
+            self.register_buffer('running_mean', torch.zeros(num_features))
+            self.register_buffer('running_var', torch.ones(num_features))
 
     def forward(self, x):
+        if self.kind.startswith('layernorm'):
+            y = F.layer_norm(x.movedim(1, -1), x.shape[1:2], self.weight, self.bias, self.eps)
+            return y.movedim(-1, 1)
+        if not self.kind.startswith('batchnorm'):
+            return F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
@@ -89,7 +125,7 @@ class Norm(nn.Module):
             # flax's statistics: E[x^2] - E[x]^2, clipped at 0
             mean = x.mean((0, 2, 3))
             var = torch.clamp(x.square().mean((0, 2, 3)) - mean.square(), min=0.)
-            m = BN_MOMENTUM
+            m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         # the native kernels, not cuDNN's: on an H100 full-width CpnU22 trained
@@ -97,6 +133,19 @@ class Norm(nn.Module):
         # float64's (chip_smoke.py phase 11a)
         return torch.ops.aten.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.,
                                                 self.eps)[0]
+
+
+class NamedNorm(nn.Module):
+    """A :class:`Norm` as the JAX package's ``Norm(name=...)`` holds it: in a
+    child named ``norm`` (keys ``<name>.norm.weight``, ...); identity for a
+    kind of None."""
+
+    def __init__(self, num_features: int, kind: Optional[str] = 'batchnorm2d', **kwargs):
+        super().__init__()
+        self.norm = None if _norm_kind(kind) is None else Norm(num_features, kind, **kwargs)
+
+    def forward(self, x):
+        return x if self.norm is None else self.norm(x)
 
 
 class ConvNorm(nn.Sequential):
@@ -114,6 +163,38 @@ class ConvNorm(nn.Sequential):
         super().__init__(*layers)
 
 
+class _NamedConvNorm(nn.Module):
+    """The JAX ``ConvNorm``'s names: children ``conv`` and ``norm`` (a :class:`NamedNorm`)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, padding, stride, norm_layer,
+                 use_bias):
+        super().__init__()
+        pad = kernel_size // 2 if padding is None else padding
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=pad,
+                              bias=use_bias)
+        self.norm = NamedNorm(out_channels, norm_layer)
+
+    def forward(self, x):
+        return self.norm(self.conv(x))
+
+
+class ConvNormRelu(nn.Module):
+    """Convolution + normalization + activation under the JAX module names
+    (``block.conv``, ``block.norm.norm``): Ppm's and MaNet's block."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 padding: Optional[int] = None, stride: int = 1,
+                 norm_layer: Optional[str] = 'batchnorm2d', activation='relu',
+                 use_bias: bool = True):
+        super().__init__()
+        self.block = _NamedConvNorm(in_channels, out_channels, kernel_size, padding, stride,
+                                    norm_layer, use_bias)
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        return self.act(self.block(x))
+
+
 class TwoConvNormRelu(nn.Sequential):
     """conv-norm-act x2 (the U-Net block), flat: conv 0, norm 1, act 2, conv 3, norm 4, act 5."""
 
@@ -127,6 +208,37 @@ class TwoConvNormRelu(nn.Sequential):
             get_activation(activation),
             *ConvNorm(mid, out_channels, kernel_size, padding, 1, norm_layer, use_bias),
             get_activation(activation))
+
+
+class ResBlock(TwoConvNormRelu):
+    """Basic residual block: ``TwoConvNormRelu``'s layout without biases, the
+    second activation after the sum, and a 1x1 ``downsample`` projection
+    (conv 0, norm 1) when the channels or the stride change."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 padding: Optional[int] = None, norm_layer: str = 'batchnorm2d',
+                 activation='relu', stride: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, padding, stride,
+                         norm_layer=norm_layer, activation=activation, use_bias=False)
+        self.downsample = ConvNorm(in_channels, out_channels, 1, 0, stride, norm_layer,
+                                   use_bias=False) \
+            if in_channels != out_channels or stride != 1 else None
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self[2](self[1](self[0](x)))
+        return self[5](self[4](self[3](out)) + identity)
+
+
+def same_padding(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    """Pad NCHW ``x`` as flax's ``Conv(padding='SAME')`` does for a kernel and
+    stride: the output side is ``ceil(side / stride)``, and an odd total pad
+    puts the extra row or column at the end."""
+    pads = []
+    for side in reversed(x.shape[2:]):
+        total = max((-(-side // stride) - 1) * stride + kernel_size - side, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
 
 
 class ScaledTanh(nn.Module):
@@ -186,6 +298,21 @@ class Dropout2d(nn.Module):
             return x
         keep = 1. - self.p
         draw = torch.rand(x.shape[:2] + (1, 1), generator=self.generator, device=x.device)
+        return torch.where(draw < keep, x / keep, 0.)
+
+
+class StochasticDepth(Dropout2d):
+    """Drops a residual branch per sample (``(N, 1, 1, 1)`` masks) in train
+    mode, as the JAX ``CNBlock`` does, scaled by ``1 / (1 - p)``; identity in
+    eval mode. Its draws cannot equal flax's: they come from ``generator``,
+    as :class:`Dropout2d`'s do."""
+
+    def forward(self, x):
+        if not self.training or not self.p:
+            return x
+        keep = 1. - self.p
+        draw = torch.rand(x.shape[:1] + (1,) * (x.dim() - 1), generator=self.generator,
+                          device=x.device)
         return torch.where(draw < keep, x / keep, 0.)
 
 

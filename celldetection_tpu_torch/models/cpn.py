@@ -8,9 +8,14 @@ Counterpart of ``celldetection_tpu/models/cpn.py``: ``CPNCore`` (69-187),
 ``prepare_inputs`` (708-739), ``__call__`` (741-783, here ``forward``, which
 sends inputs above ``max_imsize`` through
 :class:`..parallel.tiles.TiledInference`) and ``detach`` (785-806),
-``CpnU22`` (834-846), ``CpnU12`` (880-884), the twenty
-``Cpn<ResNet>{UNet,FPN}`` of ``_register_backbone_cpns`` (887-905, 1017-1041)
-and ``get_cpn``.
+``CpnU22`` (834-846), ``CpnSlimU22``, ``CpnWideU22``, ``CpnResUNet``,
+``CpnU17`` and ``CpnU12`` (849-884), every constructor of
+``_register_backbone_cpns`` (887-1046: the twenty ResNet-family UNets and
+FPNs, the ConvNeXt, DenseNet and MobileNetV3 UNets, the MobileNetV3 FPNs,
+the ResNet MaNets, the Timm/Smp UNets and MaNets and ``CpnMiTB5MaNet``) and
+``get_cpn``. ``backbone_kwargs={'pretrained': spec}`` loads ImageNet
+encoder weights after the init (:func:`..util.pretrained.apply_pretrained_`),
+as the JAX package's ``CPN.init`` does.
 
 As in the JAX package every selection is capacity-padded: per image the top
 ``max_detections`` foreground pixels are carried through decode, refinement
@@ -36,12 +41,15 @@ from ..ops.cpn import (batched_box_nms, fouriers2contours, order_weighting,
 from ..util.device import resolve_device
 from ..util.init import torch_init_
 from . import fpn as fpn_lib
+from . import manet as manet_lib
+from . import resnet as resnet_lib
 from . import unet as unet_lib
+from .host_encoder import build_host_encoder, resolve_native_encoder
 from .commons import Dropout2d, FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
 
 __all__ = ['CPNCore', 'CPN', 'cpn_decode', 'cpn_compute_loss', 'DEFAULT_WEIGHTS',
            'apply_detection_offsets', 'local_refinement', 'get_cpn', 'models_by_name', 'CpnU22',
-           'CpnU12']
+           'CpnSlimU22', 'CpnWideU22', 'CpnResUNet', 'CpnU17', 'CpnU12']
 
 
 class CPNCore(nn.Module):
@@ -430,6 +438,7 @@ class CPN(nn.Module):
                             refinement_iterations=refinement_iterations,
                             refinement_buckets=refinement_buckets,
                             max_detections=max_detections)
+        # dropout and stochastic depth (a Dropout2d): their generator is set per call
         self._dropouts = [m for m in self.core.modules() if isinstance(m, Dropout2d)]
         self.to(device)
         self.eval()
@@ -610,21 +619,31 @@ def register_model(fn):
     return fn
 
 
-def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None,
+def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None, name=None,
               torch_init: bool = True, seed: int = 0, **kwargs):
-    """Build a CPN; ``torch_init`` re-draws its decoder's convolutions to the
+    """Build the CPN ``name``; ``torch_init`` re-draws its convolutions to the
     reference's init (:func:`..util.init.torch_init_`) from ``seed``, as the
-    JAX package's ``CPN.init`` does by default."""
+    JAX package's ``CPN.init`` does by default; then a ``pretrained`` spec of
+    ``backbone_kwargs`` loads the encoder's ImageNet weights."""
     device = resolve_device(device)   # fail before building on a card-less host
     backbone_kwargs = dict(backbone_kwargs or {})
-    if backbone_kwargs.pop('pretrained', False):
-        raise NotImplementedError('pretrained backbone weights are not ported yet: they come '
-                                  'with the slice of the command-line interface')
+    pretrained = backbone_kwargs.pop('pretrained', False)
     backbone = backbone_fn(in_channels, 0, backbone_kwargs=dict(backbone_kwargs))
+    return _finish_cpn(backbone, name, device, in_channels, backbone_kwargs, torch_init, seed,
+                       pretrained, **kwargs)
+
+
+def _finish_cpn(backbone, name, device, in_channels, backbone_kwargs, torch_init, seed,
+                pretrained, **kwargs):
     model = CPN(backbone=backbone, device=device, **kwargs)
     model.hparams.update(in_channels=in_channels, backbone_kwargs=backbone_kwargs)
+    if name is not None:
+        model.hparams['model'] = name
     if torch_init:
         torch_init_(model, seed=seed)
+    if pretrained:
+        from ..util.pretrained import apply_pretrained_
+        apply_pretrained_(model, pretrained)
     return model
 
 
@@ -634,50 +653,137 @@ def CpnU22(in_channels: int, order: int = 5, nms_thresh: float = .2, score_thres
            refinement_iterations: int = 4, refinement_margin: float = 3.,
            refinement_buckets: int = 1, backbone_kwargs: dict = None, **kwargs):
     """CPN with a U22 backbone."""
-    m = _make_cpn(unet_lib.U22, in_channels, backbone_kwargs, order=order, nms_thresh=nms_thresh,
-                  score_thresh=score_thresh, samples=samples, classes=classes,
-                  refinement=refinement, refinement_iterations=refinement_iterations,
-                  refinement_margin=refinement_margin, refinement_buckets=refinement_buckets,
-                  **kwargs)
-    m.hparams['model'] = 'CpnU22'
-    return m
+    return _make_cpn(unet_lib.U22, in_channels, backbone_kwargs, name='CpnU22', order=order,
+                     nms_thresh=nms_thresh, score_thresh=score_thresh, samples=samples,
+                     classes=classes, refinement=refinement,
+                     refinement_iterations=refinement_iterations,
+                     refinement_margin=refinement_margin, refinement_buckets=refinement_buckets,
+                     **kwargs)
 
 
-@register_model
-def CpnU12(in_channels: int, backbone_kwargs: dict = None, **kwargs):
-    """CPN with a U12 backbone (U22's modules at depth 3)."""
-    m = _make_cpn(unet_lib.U12, in_channels, backbone_kwargs, **kwargs)
-    m.hparams['model'] = 'CpnU12'
-    return m
+def _register_unet_cpns():
+    """``CpnSlimU22``, ``CpnWideU22``, ``CpnResUNet``, ``CpnU17``, ``CpnU12``:
+    the JAX package's short signatures (every CPN option through ``kwargs``)."""
+    docs = {'SlimU22': 'a SlimU22 backbone (U22 at base 32)',
+            'WideU22': 'a WideU22 backbone (U22 at base 96)',
+            'ResUNet': 'a residual U-Net backbone', 'U17': 'a U17 backbone (4 resolutions)',
+            'U12': "a U12 backbone (U22's modules at depth 3)"}
+
+    def make(cpn_name, backbone_fn, doc):
+        def ctor(in_channels: int, backbone_kwargs: dict = None, **kwargs):
+            return _make_cpn(backbone_fn, in_channels, backbone_kwargs, name=cpn_name, **kwargs)
+        ctor.__name__ = ctor.__qualname__ = cpn_name
+        ctor.__doc__ = f'CPN with {doc}.'
+        return ctor
+
+    for unet_name, doc in docs.items():
+        name = f'Cpn{unet_name}'
+        models_by_name[name] = globals()[name] = make(name, getattr(unet_lib, unet_name), doc)
+
+
+_register_unet_cpns()
+
+
+def _manet_backbone(resnet_ctor):
+    """MaNet over a ResNet encoder, at the ResNet's default ``fused_initial=True``."""
+    def ctor(in_channels, out_channels=0, backbone_kwargs=None, **kwargs):
+        return manet_lib.MaNet(body=resnet_ctor(in_channels, **(backbone_kwargs or {})),
+                               **kwargs)
+    return ctor
+
+
+def _resolve_encoder(adapter, model_name, in_channels, pretrained, backbone_kwargs):
+    """The native encoder of a timm/smp name, else the timm or smp encoder
+    (``backbone_kwargs={'force_host': True}`` skips the native one)."""
+    bk = dict(backbone_kwargs or {})
+    if not bk.pop('force_host', False):
+        native = resolve_native_encoder(model_name, in_channels, backbone_kwargs=bk)
+        if native is not None:
+            return native, True
+    return build_host_encoder(adapter, model_name, in_channels, pretrained, bk), False
+
+
+def _register_host_cpns():
+    """``CpnTimmUNet``, ``CpnSmpUNet``, ``CpnTimmMaNet``, ``CpnSmpMaNet`` and
+    ``CpnMiTB5MaNet`` (smp's ``mit_b5``): a native encoder for a name of
+    ``host_encoder.NATIVE_ENCODER_NAMES``, else timm's or smp's (which
+    raises ``ImportError`` naming the package where it is missing)."""
+    def make(cpn_name, adapter, decoder):
+        def ctor(in_channels: int, model_name: str, backbone_kwargs: dict = None, device=None,
+                 torch_init: bool = True, seed: int = 0, **kwargs):
+            device = resolve_device(device)
+            bk = dict(backbone_kwargs or {})
+            pretrained = bk.pop('pretrained', False)
+            body, native = _resolve_encoder(adapter, model_name, in_channels, pretrained, bk)
+            if decoder == 'UNet':
+                backbone = unet_lib.UNet(body=body, in_channels_list=list(body.out_channels),
+                                         in_strides_list=list(body.out_strides))
+            else:
+                backbone = manet_lib.MaNet(body=body)
+            model = _finish_cpn(backbone, cpn_name, device, in_channels, bk, torch_init, seed,
+                                pretrained if native else False, **kwargs)
+            model.hparams['model_name'] = model_name
+            return model
+        ctor.__name__ = ctor.__qualname__ = cpn_name
+        ctor.__doc__ = f'CPN with a {decoder} over a {adapter} encoder named ``model_name``.'
+        return ctor
+
+    for adapter in ('timm', 'smp'):
+        for decoder in ('UNet', 'MaNet'):
+            name = f'Cpn{adapter.capitalize()}{decoder}'
+            models_by_name[name] = globals()[name] = make(name, adapter, decoder)
+            __all__.append(name)
+    smp_manet = models_by_name['CpnSmpMaNet']
+
+    def CpnMiTB5MaNet(in_channels: int, backbone_kwargs: dict = None, **kwargs):
+        """CPN with a MaNet over smp's MiT-B5 encoder (needs smp)."""
+        kwargs.pop('model_name', None)   # the encoder is fixed; saved hparams carry it
+        model = smp_manet(in_channels, model_name='mit_b5', backbone_kwargs=backbone_kwargs,
+                          **kwargs)
+        model.hparams['model'] = 'CpnMiTB5MaNet'
+        return model
+
+    models_by_name['CpnMiTB5MaNet'] = globals()['CpnMiTB5MaNet'] = CpnMiTB5MaNet
+    __all__.append('CpnMiTB5MaNet')
+
+
+_register_host_cpns()
 
 
 def _register_backbone_cpns():
-    """``Cpn<ResNet>{UNet,FPN}``: CPNs over the ResNet-family UNets and FPNs."""
+    """``Cpn<Encoder>{UNet,FPN,MaNet}``: CPNs over the encoder UNets, the FPNs and the MaNets."""
     def make(cpn_name, backbone_fn):
         def ctor(in_channels: int, order: int = 5, nms_thresh: float = .2,
                  score_thresh: float = .9, samples: int = 32, classes: int = 2,
                  refinement: bool = True, refinement_iterations: int = 4,
                  refinement_margin: float = 3., refinement_buckets: int = 1,
                  backbone_kwargs: dict = None, **kwargs):
-            m = _make_cpn(backbone_fn, in_channels, backbone_kwargs, order=order,
-                          nms_thresh=nms_thresh, score_thresh=score_thresh, samples=samples,
-                          classes=classes, refinement=refinement,
-                          refinement_iterations=refinement_iterations,
-                          refinement_margin=refinement_margin,
-                          refinement_buckets=refinement_buckets, **kwargs)
-            m.hparams['model'] = cpn_name
-            return m
-        ctor.__name__ = cpn_name
+            return _make_cpn(backbone_fn, in_channels, backbone_kwargs, name=cpn_name,
+                             order=order, nms_thresh=nms_thresh, score_thresh=score_thresh,
+                             samples=samples, classes=classes, refinement=refinement,
+                             refinement_iterations=refinement_iterations,
+                             refinement_margin=refinement_margin,
+                             refinement_buckets=refinement_buckets, **kwargs)
+        ctor.__name__ = ctor.__qualname__ = cpn_name
         ctor.__doc__ = f'CPN with a {cpn_name[3:]} backbone.'
         return ctor
 
+    specs = {}
     for name in ('ResNet18', 'ResNet34', 'ResNet50', 'ResNet101', 'ResNet152', 'ResNeXt50',
                  'ResNeXt101', 'ResNeXt152', 'WideResNet50', 'WideResNet101'):
-        for kind, lib in (('UNet', unet_lib), ('FPN', fpn_lib)):
-            cpn_name = f'Cpn{name}{kind}'
-            fn = make(cpn_name, getattr(lib, f'{name}{kind}'))
-            models_by_name[cpn_name] = globals()[cpn_name] = fn
-            __all__.append(cpn_name)
+        specs[f'Cpn{name}UNet'] = getattr(unet_lib, f'{name}UNet')
+        specs[f'Cpn{name}FPN'] = getattr(fpn_lib, f'{name}FPN')
+    for name in ('ConvNeXtTiny', 'ConvNeXtSmall', 'ConvNeXtBase', 'ConvNeXtLarge',
+                 'ConvNeXtV2Tiny', 'ConvNeXtV2Base', 'DenseNet121', 'DenseNet161',
+                 'DenseNet169', 'DenseNet201', 'MobileNetV3Large', 'MobileNetV3Small'):
+        specs[f'Cpn{name}UNet'] = getattr(unet_lib, f'{name}UNet')
+    for name in ('MobileNetV3Large', 'MobileNetV3Small'):
+        specs[f'Cpn{name}FPN'] = getattr(fpn_lib, f'{name}FPN')
+    specs['CpnResNet50MaNet'] = _manet_backbone(resnet_lib.ResNet50)
+    specs['CpnResNet18MaNet'] = _manet_backbone(resnet_lib.ResNet18)
+    for cpn_name, backbone_fn in specs.items():
+        models_by_name[cpn_name] = globals()[cpn_name] = make(cpn_name, backbone_fn)
+        __all__.append(cpn_name)
 
 
 _register_backbone_cpns()
@@ -686,6 +792,5 @@ _register_backbone_cpns()
 def get_cpn(name: str):
     """Look up a CPN model constructor by name."""
     if name not in models_by_name:
-        raise KeyError(f'Unknown or not yet ported CPN model: {name}. '
-                       f'Available: {sorted(models_by_name)}')
+        raise KeyError(f'Unknown CPN model: {name}. Available: {sorted(models_by_name)}')
     return models_by_name[name]

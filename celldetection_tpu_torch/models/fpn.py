@@ -1,15 +1,15 @@
 """Feature Pyramid Network (``nn.Module``s, NCHW inside).
 
 Counterpart of ``celldetection_tpu/models/fpn.py``: ``FeaturePyramidNetwork``
-(25-57), ``BackboneWithFPN`` (60-82), ``FPN`` (85-87), ``_res_fpn`` (100-111)
-and the ten ResNet-family FPNs (129-138).
+(25-57), ``BackboneWithFPN`` (60-82), ``FPN`` (85-87), ``_res_fpn`` (100-111),
+``_enc_fpn`` (114-119), the two MobileNetV3 FPNs (124-125) and the ten
+ResNet-family FPNs (129-138).
 
 Top-down: a 1x1 inner ``ConvNorm`` per level, nearest upsample and add, a
 3x3 layer ``ConvNorm``, and an extra level ``'pool'``, a max-pool of kernel 1
 and stride 2 of the coarsest output. Module names are the reference layout
 (``fpn.inner_blocks.<i>.0``, ``fpn.layer_blocks.<i>.0``).
 """
-import warnings
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -17,12 +17,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.commons import interpolate_nchw
+from . import mobilenetv3 as mnv3_lib
 from . import resnet as resnet_lib
 from .commons import ConvNorm, Normalize
+from .unet import warn_dropped_pretrained
 
 __all__ = ['FeaturePyramidNetwork', 'BackboneWithFPN', 'FPN', 'ResNet18FPN', 'ResNet34FPN',
            'ResNet50FPN', 'ResNet101FPN', 'ResNet152FPN', 'ResNeXt50FPN', 'ResNeXt101FPN',
-           'ResNeXt152FPN', 'WideResNet50FPN', 'WideResNet101FPN']
+           'ResNeXt152FPN', 'WideResNet50FPN', 'WideResNet101FPN', 'MobileNetV3LargeFPN',
+           'MobileNetV3SmallFPN']
 
 
 class FeaturePyramidNetwork(nn.Module):
@@ -89,16 +92,24 @@ def _res_fpn(resnet_ctor):
              pretrained=False, **kwargs):
         # the second positional is the FPN width; the CPN zoo passes 0 there
         # (the UNets' out_channels), which means the default
-        if pretrained:
-            warnings.warn('pretrained=True on a bare backbone constructor is not applied '
-                          '(as in the JAX package); pretrained weights are not ported yet',
-                          stacklevel=2)
+        warn_dropped_pretrained(pretrained)
         bk = dict(fused_initial=False)
         bk.update(backbone_kwargs or {})
         return FPN(resnet_ctor(in_channels, **bk), channels=fpn_channels or 256, **kwargs)
     return ctor
 
 
+def _enc_fpn(encoder_ctor):
+    def ctor(in_channels, fpn_channels: int = 256, backbone_kwargs: dict = None,
+             pretrained=False, **kwargs):
+        warn_dropped_pretrained(pretrained)
+        return FPN(encoder_ctor(in_channels, **(backbone_kwargs or {})),
+                   channels=fpn_channels or 256, **kwargs)
+    return ctor
+
+
+MobileNetV3LargeFPN = _enc_fpn(mnv3_lib.MobileNetV3Large)
+MobileNetV3SmallFPN = _enc_fpn(mnv3_lib.MobileNetV3Small)
 ResNet18FPN = _res_fpn(resnet_lib.ResNet18)
 ResNet34FPN = _res_fpn(resnet_lib.ResNet34)
 ResNet50FPN = _res_fpn(resnet_lib.ResNet50)

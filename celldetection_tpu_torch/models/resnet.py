@@ -3,7 +3,8 @@
 Counterpart of ``celldetection_tpu/models/resnet.py``: ``BasicBlock`` (33-56),
 ``Bottleneck`` (59-98), ``_ResLayer`` (101-124), ``ResNetEncoder`` (127-198),
 the ten constructors (210-219), the torchvision spellings (222-226) and
-``get_resnet`` (240-254).
+``get_resnet`` (240-254); ``pyramid_pooling`` appends a :class:`.ppm.Ppm`
+(``body.ppm``) to the deepest level.
 
 The JAX package's ``GroupedConv`` (a block-diagonal dense conv, a TPU
 lowering choice) is a plain ``nn.Conv2d(groups=...)`` here, with the same
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from .commons import Norm
+from .ppm import Ppm
 
 __all__ = ['BasicBlock', 'Bottleneck', 'ResNetEncoder', 'ResNet18', 'ResNet34', 'ResNet50',
            'ResNet101', 'ResNet152', 'ResNeXt50', 'ResNeXt101', 'ResNeXt152', 'WideResNet50',
@@ -111,10 +113,7 @@ class ResNetEncoder(nn.Sequential):
                  pyramid_pooling_channels: int = 64):
         if secondary_block is not None:
             raise NotImplementedError('ResNetEncoder secondary_block (MambaLayer) is not ported '
-                                      'yet: it comes with the rest of the zoo')
-        if pyramid_pooling:
-            raise NotImplementedError('ResNetEncoder pyramid_pooling (Ppm) is not ported yet: '
-                                      'it comes with the rest of the zoo')
+                                      'yet')
         block = Bottleneck if bottleneck else BasicBlock
         stem = [nn.Conv2d(in_channels, base_channel, 7, stride=initial_strides, padding=3,
                           bias=False),
@@ -131,19 +130,25 @@ class ResNetEncoder(nn.Sequential):
         else:
             super().__init__(nn.Sequential(*stem), nn.Sequential(pool, stages[0]), *stages[1:])
         self.fused_initial = fused_initial
+        self.num_stages = len(self)
         e = block.expansion
         self.out_channels = ([] if fused_initial else [base_channel]) + \
             [base_channel * 2 ** i * e for i in range(4)]
         self.out_strides = ([] if fused_initial else [2]) + [4, 8, 16, 32]
+        self.ppm = None
+        if pyramid_pooling:
+            self.ppm = Ppm(self.out_channels[-1], pyramid_pooling_channels)
+            self.out_channels[-1] = self.ppm.out_channels
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
         if x.dim() != 4:
-            raise NotImplementedError('3-D ResNet inputs are not ported yet: they come with the '
-                                      'rest of the zoo')
+            raise NotImplementedError('3-D ResNet inputs are not ported yet')
         features = {}
-        for i, stage in enumerate(self):
-            x = stage(x)
+        for i in range(self.num_stages):
+            x = self[i](x)
             features[str(i)] = x
+        if self.ppm is not None:
+            features[str(self.num_stages - 1)] = self.ppm(x)
         return features
 
 

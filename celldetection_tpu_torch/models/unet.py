@@ -2,9 +2,10 @@
 
 Counterpart of ``celldetection_tpu/models/unet.py``: ``UNetEncoder`` (28-67),
 ``GeneralizedUNet`` (70-190, with its stride bridging), ``BackboneAsUNet``/``UNet``
-(198-249), ``_make_encoder_unet`` (258-272), ``U22`` (275-278), ``U12``
-(299-302), ``_backbone_unet`` (311-343) and the ten ResNet-family UNets
-(346-356).
+(198-249), ``_make_encoder_unet`` (258-272), ``U22``, ``SlimU22``,
+``WideU22``, ``U17``, ``U12`` and ``ResUNet`` (275-308), ``_backbone_unet``
+(311-343), the ten ResNet-family UNets (346-356) and the ConvNeXt, DenseNet
+and MobileNetV3 UNets (366-377).
 
 Module names follow the reference torch layout (``body.<i>``,
 ``unet.inner_blocks.<i>``, ``unet.layer_blocks.<i>``) so that weights from
@@ -17,13 +18,19 @@ import torch
 from torch import nn
 
 from ..ops.commons import interpolate_nchw
+from . import convnext as convnext_lib
+from . import densenet as densenet_lib
+from . import mobilenetv3 as mnv3_lib
 from . import resnet as resnet_lib
-from .commons import Normalize, TwoConvNormRelu, get_activation
+from .commons import Normalize, ResBlock, TwoConvNormRelu, get_activation
 
-__all__ = ['UNetEncoder', 'GeneralizedUNet', 'BackboneAsUNet', 'UNet', 'U22', 'U12',
-           'ResNet18UNet', 'ResNet34UNet', 'ResNet50UNet', 'ResNet101UNet', 'ResNet152UNet',
-           'ResNeXt50UNet', 'ResNeXt101UNet', 'ResNeXt152UNet', 'WideResNet50UNet',
-           'WideResNet101UNet']
+__all__ = ['UNetEncoder', 'GeneralizedUNet', 'BackboneAsUNet', 'UNet', 'U22', 'SlimU22',
+           'WideU22', 'U17', 'U12', 'ResUNet', 'ResNet18UNet', 'ResNet34UNet', 'ResNet50UNet',
+           'ResNet101UNet', 'ResNet152UNet', 'ResNeXt50UNet', 'ResNeXt101UNet',
+           'ResNeXt152UNet', 'WideResNet50UNet', 'WideResNet101UNet', 'ConvNeXtTinyUNet',
+           'ConvNeXtSmallUNet', 'ConvNeXtBaseUNet', 'ConvNeXtLargeUNet', 'ConvNeXtV2TinyUNet',
+           'ConvNeXtV2BaseUNet', 'DenseNet121UNet', 'DenseNet161UNet', 'DenseNet169UNet',
+           'DenseNet201UNet', 'MobileNetV3LargeUNet', 'MobileNetV3SmallUNet']
 
 
 class UNetEncoder(nn.Sequential):
@@ -199,10 +206,45 @@ def U22(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None
                               backbone_kwargs, **kwargs)
 
 
+def SlimU22(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None,
+            **kwargs):
+    """U22 with half the channels (base 32)."""
+    return _make_encoder_unet(in_channels, out_channels, 32, 5, None, final_activation,
+                              backbone_kwargs, **kwargs)
+
+
+def WideU22(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None,
+            **kwargs):
+    """U22 with 1.5x the channels (base 96)."""
+    return _make_encoder_unet(in_channels, out_channels, 96, 5, None, final_activation,
+                              backbone_kwargs, **kwargs)
+
+
+def U17(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None, **kwargs):
+    """U-Net 17: 4 resolutions, base 64 channels."""
+    return _make_encoder_unet(in_channels, out_channels, 64, 4, None, final_activation,
+                              backbone_kwargs, **kwargs)
+
+
 def U12(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None, **kwargs):
     """U-Net 12: 3 resolutions, base 64 channels."""
     return _make_encoder_unet(in_channels, out_channels, 64, 3, None, final_activation,
                               backbone_kwargs, **kwargs)
+
+
+def ResUNet(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None,
+            **kwargs):
+    """U22's shape with residual blocks (``ResBlock``) in encoder and decoder."""
+    return _make_encoder_unet(in_channels, out_channels, 64, 5, ResBlock, final_activation,
+                              backbone_kwargs, **kwargs)
+
+
+def warn_dropped_pretrained(pretrained):
+    """A bare backbone constructor does not apply ``pretrained``, as in the JAX package."""
+    if pretrained:
+        warnings.warn("pretrained=True on a bare backbone constructor is not applied: build the "
+                      "CPN with backbone_kwargs={'pretrained': ...} (util.pretrained."
+                      "apply_pretrained_ loads the weights after the init)", stacklevel=3)
 
 
 def _backbone_unet(backbone_ctor, default_backbone_kwargs=None):
@@ -214,10 +256,7 @@ def _backbone_unet(backbone_ctor, default_backbone_kwargs=None):
     """
     def ctor(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None,
              pretrained=False, block_cls=None, **kwargs):
-        if pretrained:
-            warnings.warn('pretrained=True on a bare backbone constructor is not applied '
-                          '(as in the JAX package); pretrained weights are not ported yet',
-                          stacklevel=2)
+        warn_dropped_pretrained(pretrained)
         bk = dict(default_backbone_kwargs or {})
         bk.update(backbone_kwargs or {})
         encoder = backbone_ctor(in_channels, **bk)
@@ -238,3 +277,16 @@ ResNeXt101UNet = _backbone_unet(resnet_lib.ResNeXt101, _RES_UNET_KW)
 ResNeXt152UNet = _backbone_unet(resnet_lib.ResNeXt152, _RES_UNET_KW)
 WideResNet50UNet = _backbone_unet(resnet_lib.WideResNet50, _RES_UNET_KW)
 WideResNet101UNet = _backbone_unet(resnet_lib.WideResNet101, _RES_UNET_KW)
+
+ConvNeXtTinyUNet = _backbone_unet(convnext_lib.ConvNeXtTiny)
+ConvNeXtSmallUNet = _backbone_unet(convnext_lib.ConvNeXtSmall)
+ConvNeXtBaseUNet = _backbone_unet(convnext_lib.ConvNeXtBase)
+ConvNeXtLargeUNet = _backbone_unet(convnext_lib.ConvNeXtLarge)
+ConvNeXtV2TinyUNet = _backbone_unet(convnext_lib.ConvNeXtV2Tiny)
+ConvNeXtV2BaseUNet = _backbone_unet(convnext_lib.ConvNeXtV2Base)
+DenseNet121UNet = _backbone_unet(densenet_lib.DenseNet121)
+DenseNet161UNet = _backbone_unet(densenet_lib.DenseNet161)
+DenseNet169UNet = _backbone_unet(densenet_lib.DenseNet169)
+DenseNet201UNet = _backbone_unet(densenet_lib.DenseNet201)
+MobileNetV3LargeUNet = _backbone_unet(mnv3_lib.MobileNetV3Large)
+MobileNetV3SmallUNet = _backbone_unet(mnv3_lib.MobileNetV3Small)

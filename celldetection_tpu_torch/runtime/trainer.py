@@ -23,8 +23,7 @@ from ..data.targets import collate_cpn_targets, cpn_targets_single
 from ..parallel.train import DDP_SLICE, TrainState, make_train_step
 from ..util._msgpack import msgpack_restore, msgpack_serialize, packb, unpackb
 from ..util.config import conf2optimizer
-from ..util.serialization import _body_layout
-from ..util.weights import jax_variables_from_state_dict, state_dict_from_jax
+from ..util.weights import body_layout, jax_variables_from_state_dict, state_dict_from_jax
 
 __all__ = ['CPNTrainer']
 
@@ -369,7 +368,7 @@ class CPNTrainer:
         if backend == 'orbax':
             raise NotImplementedError('Orbax is the JAX package\'s checkpointer; the port '
                                       'writes msgpack checkpoints (backend="msgpack")')
-        encoder, fused = _body_layout(self.model)
+        encoder, fused = body_layout(self.model)
         sched = self.state.scheduler
         payload = {
             'variables': msgpack_serialize(
@@ -393,7 +392,7 @@ class CPNTrainer:
                                       'reads msgpack checkpoints (backend="msgpack")')
         with open(path, 'rb') as f:
             payload = unpackb(f.read())
-        _, fused = _body_layout(self.model)
+        _, fused = body_layout(self.model)
         self.model.load_state_dict(state_dict_from_jax(msgpack_restore(payload['variables']),
                                                        fused), strict=True)
         opt = _torch_tree(unpackb(payload['opt_state']))

@@ -2,17 +2,24 @@
 
 Counterpart of ``celldetection_tpu/util/init.py``: the scheme table
 (``FAMILY_SCHEMES``), ``detect_encoder_family`` and ``_resolve_scheme``
-(84-128), applied over ``named_modules`` instead of a flax tree. Each
-convolution's scheme follows from its JAX path (``util.weights._jax_path``):
+(84-128) and the schemes (47-79), applied over ``named_modules`` instead of
+a flax tree. Each convolution's and linear layer's scheme follows from its
+JAX path (``util.weights._jax_path``), as JAX re-draws every kernel of two or
+more dimensions:
 
 - inside the UNet and FPN decoders (``unet``, ``fpn``): ``kaiming_uniform_(a=1)``,
   ``U(+-sqrt(3 / fan_in))`` kernels and zero biases, the reference's own
   re-initialization (``celldetection/models/unet.py:171-176``,
   ``fpn.py:125-129``);
-- everywhere else in the port's models (the U-Net and ResNet encoders and
-  the heads): ``torch_conv``, torch's default ``U(+-1 / sqrt(fan_in))`` for
-  kernels and biases, which a new ``nn.Conv2d`` already holds and is left as
-  it is.
+- in a ConvNeXt body, its ``mlp0``/``mlp1`` included: ``trunc_normal_02``,
+  ``0.02`` times a normal truncated at 2 standard deviations, zero biases;
+  in a DenseNet body ``kaiming_normal_fan_in``, ``N(0, 2 / fan_in)``; in a
+  MobileNetV3 body ``kaiming_normal_fan_out``, ``N(0, 2 / fan_out)`` with
+  ``fan_out = out * kh * kw``, zero biases;
+- everywhere else (the U-Net and ResNet encoders, ``Ppm``, the MaNet
+  decoder and the heads): ``torch_conv``, torch's default
+  ``U(+-1 / sqrt(fan_in))`` for kernels and biases, which a new
+  ``nn.Conv2d`` or ``nn.Linear`` already holds and is left as it is.
 
 The re-drawn values come from an explicit ``torch.Generator`` on the CPU, so
 a model's decoder is the same on every device for one seed. They cannot equal
@@ -24,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .weights import _jax_path
+from .weights import _jax_path, body_layout
 
 __all__ = ['torch_init_', 'module_schemes', 'detect_encoder_family', 'FAMILY_SCHEMES']
 
@@ -67,14 +74,12 @@ def _resolve_scheme(path: Tuple[str, ...], encoder_family: Optional[str]) -> str
 
 def module_schemes(model: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], str]]:
     """``{module name: (flax path of the module, scheme)}`` for every
-    convolution of a port CPN."""
-    backbone = model.core.backbone
-    family = detect_encoder_family(backbone)
-    encoder = 'resnet' if family == 'resnet' else 'unet'
-    fused = bool(getattr(getattr(backbone, 'body', None), 'fused_initial', False))
+    convolution and linear layer of a port CPN."""
+    family = detect_encoder_family(model.core.backbone)
+    encoder, fused = body_layout(model)
     out = {}
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             _, path, _ = _jax_path(f'{name}.weight', encoder, fused)
             out[name] = (path[:-1], _resolve_scheme(path[:-1], family))
     return out
@@ -83,7 +88,8 @@ def module_schemes(model: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], str]]:
 @torch.no_grad()
 def torch_init_(model: nn.Module, generator: Optional[torch.Generator] = None,
                 seed: int = 0) -> nn.Module:
-    """Re-draw ``model``'s convolutions to the reference's init, in place.
+    """Re-draw ``model``'s convolutions and linear layers to the reference's
+    init, in place.
 
     ``generator``: a CPU ``torch.Generator`` for the draws; one seeded with
     ``seed`` when None. Modules are visited in ``named_modules`` order.
@@ -95,13 +101,20 @@ def torch_init_(model: nn.Module, generator: Optional[torch.Generator] = None,
         m = modules[name]
         if scheme == 'torch_conv':       # what a new nn.Conv2d holds already
             continue
-        if scheme != 'kaiming_uniform_a1':
-            raise NotImplementedError(f'init scheme {scheme} of {name}: its encoder family is '
-                                      f'not ported yet')
-        fan_in = m.weight[0].numel()
-        bound = float(np.sqrt(3.0 / fan_in))
         w = torch.empty(m.weight.shape, dtype=torch.float32)
-        w.uniform_(-bound, bound, generator=generator)
+        fan_in = m.weight[0].numel()
+        if scheme == 'kaiming_uniform_a1':
+            bound = float(np.sqrt(3.0 / fan_in))
+            w.uniform_(-bound, bound, generator=generator)
+        elif scheme == 'trunc_normal_02':
+            nn.init.trunc_normal_(w, 0., 1., -2., 2., generator=generator).mul_(0.02)
+        elif scheme == 'kaiming_normal_fan_in':
+            w.normal_(0., float(np.sqrt(2.0 / fan_in)), generator=generator)
+        elif scheme == 'kaiming_normal_fan_out':
+            fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+            w.normal_(0., float(np.sqrt(2.0 / fan_out)), generator=generator)
+        else:
+            raise ValueError(f'unknown init scheme {scheme} of {name}')
         m.weight.copy_(w)
         if m.bias is not None:
             m.bias.zero_()

@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from ._msgpack import msgpack_restore, msgpack_serialize, packb, unpackb
-from .weights import jax_variables_from_state_dict, state_dict_from_jax
+from .weights import body_layout, jax_variables_from_state_dict, state_dict_from_jax
 
 __all__ = ['model2dict', 'dict2model', 'save_model', 'load_model', 'load_model_meta',
            'fetch_model', 'save_fetchable_model', 'append_hash_to_filename', 'hash_file',
@@ -37,13 +37,6 @@ _RUNTIME_ATTRS = ('score_thresh', 'nms_thresh', 'samples', 'order', 'max_detecti
                   'refinement_iterations')
 
 
-def _body_layout(model):
-    """``(encoder, fused_initial)`` of a port CPN's backbone body."""
-    body = getattr(model.core.backbone, 'body', None)
-    fused = getattr(body, 'fused_initial', None)
-    return ('unet', False) if fused is None else ('resnet', bool(fused))
-
-
 def model2dict(model) -> dict:
     """CPN → ``{'cdt.models', 'params_bytes', 'cdt.__version__'}``.
 
@@ -54,7 +47,7 @@ def model2dict(model) -> dict:
     hparams = dict(model.hparams)
     for attr in _RUNTIME_ATTRS:
         hparams[attr] = getattr(model, attr)
-    encoder, fused = _body_layout(model)
+    encoder, fused = body_layout(model)
     variables = jax_variables_from_state_dict(model.state_dict(), fused, encoder)
     return {'cdt.models': {'model': hparams.get('model'), 'kwargs': hparams},
             'params_bytes': msgpack_serialize(variables),
@@ -101,7 +94,7 @@ def dict2model(d: dict, **overrides):
     # the stored weights replace every parameter, so the init is skipped
     model = build_cpn(name, kwargs, torch_init=not has_weights)
     if has_weights:
-        _, fused = _body_layout(model)
+        _, fused = body_layout(model)
         sd = state_dict_from_jax(msgpack_restore(d['params_bytes']), fused)
         model.load_state_dict(sd, strict=True)
     return model

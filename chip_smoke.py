@@ -62,7 +62,9 @@ Phases, in order; any failure exits non-zero:
      targets, the device's idle share, peak memory and the 10 slowest
      device kernels of one step; (c) 30 steps on one fixed batch (the last
      loss below the first), then ``CPNTrainer.predict`` on two held-out
-     256^2 images, which launches the NMS kernels (``launches_train``);
+     256^2 images, which launches the NMS kernels (``launches_train``), and
+     the NMS call of one predict forward held against its plain version and
+     timed beside its bound;
  12. checkpoint I/O on the card: the trained CpnU12 of
      ``tests/fixtures/cpnu12_trained.cdt`` through the port's ``load_model``,
      on the card against the CPU under phase 4's gates; the flagship saved
@@ -78,7 +80,19 @@ Phases, in order; any failure exits non-zero:
      ``f1_np`` and counts, ``best_hparams``, seconds per image and setting
      on the card and on the host, the NMS kernels' launches (one of each per
      image and setting, ``launches_validate``), and the card's counts and
-     ``best_hparams`` against the CPU's, TF32 off.
+     ``best_hparams`` against the CPU's, TF32 off;
+ 14. the rest of the zoo, card against CPU at 256^2 as phase 8: full-width and
+     full-depth CpnConvNeXtBaseUNet, CpnConvNeXtV2TinyUNet (GRN),
+     CpnDenseNet121UNet, CpnMobileNetV3LargeUNet, CpnMobileNetV3SmallFPN,
+     CpnResNet50MaNet (PAB and MFAB), CpnResUNet and CpnWideU22, random
+     weights tamed (``ZOO_CHECK``); then a synthetic torchvision ConvNeXt-Tiny
+     state dict written to a temporary ``.pth`` and loaded through
+     ``backbone_kwargs={'pretrained': path}`` on the card and the CPU
+     (encoders bit-equal, the stem adapted to one channel);
+ 15. the zoo's main path on 1024^2 tiles as phase 5: CpnConvNeXtBaseUNet in
+     fp32 at batch 1 and bf16 at batch 4, CpnDenseNet121UNet,
+     CpnMobileNetV3LargeFPN and CpnResNet50MaNet in bf16 at batch 4 (the
+     kernel launches of these runs are ``launches_zoo``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -110,7 +124,7 @@ from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
 from celldetection_tpu_torch.runtime.trainer import CPNTrainer
 from celldetection_tpu_torch.util.config import conf2optimizer
 from celldetection_tpu_torch.util.serialization import load_model, load_model_meta, save_model
-from celldetection_tpu_torch.util.weights import init_jax_variables, state_dict_from_jax
+from celldetection_tpu_torch.util.weights import body_layout, init_jax_variables, state_dict_from_jax
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -339,10 +353,12 @@ def hold_each(b, v, thresh, errs):
     return keep, offsets, slots, bands
 
 
-def device_ms(fn, calls, attempts=3):
+def device_ms(fn, calls, attempts=5):
     """Device time (ms) per launch of each NMS kernel over ``calls`` calls of
     ``fn``, from ``torch.profiler``, with its launches per call. A profiling
-    session now and then records no device activity at all; it is repeated."""
+    session now and then records no device activity at all (late in a long
+    run, several in a row); it is repeated after a pause, and None returned
+    when no session saw every kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -359,7 +375,8 @@ def device_ms(fn, calls, attempts=3):
                     out[name] = (e.self_device_time_total / 1e3 / e.count, round(e.count / calls))
         if len(out) == len(DEVICE_NAMES):
             return out
-    raise RuntimeError(f'chip_smoke: the profiler saw {sorted(out)} of the NMS kernels')
+        time.sleep(1.)
+    return None
 
 
 def launch_floor_ms():
@@ -392,8 +409,8 @@ def time_sweep(label, b, v, keep, thresh, card, floor):
     scratch = torch.cuda.max_memory_allocated() - held
     per_call = sum(k.launches for k in kernels.KERNELS) - sum(before)
     bound_ms, bound_by, tests = nms_bound(b, v, keep, thresh)
-    kernels_ms = ', '.join(f'{name} {dev[name][0]:.4f} ms x{dev[name][1]}'
-                           for _, name in DEVICE_NAMES)
+    kernels_ms = 'not measured (no profiling session saw every kernel)' if dev is None else \
+        ', '.join(f'{name} {dev[name][0]:.4f} ms x{dev[name][1]}' for _, name in DEVICE_NAMES)
     print(f'  [{card}] nms_sweep {label}: {ms:.4f} ms per call (median of 3 windows of {iters} '
           f'calls, {windows[0]:.4f}-{windows[2]:.4f}; CUDA events), '
           f'host {host_ms:.4f} ms per call (host clock, no synchronisation); on the device '
@@ -405,6 +422,22 @@ def time_sweep(label, b, v, keep, thresh, card, floor):
     return ms, dev
 
 
+def time_forward_nms(label, model, x, errs, card, floor):
+    """The NMS call of one forward of ``model`` on NHWC ``x``: each kernel held
+    against its plain version, the sweep timed beside its bound and the plain
+    sweep (phases 11c and 13)."""
+    pre = model.forward_padded(x, nms=False)
+    t = model.nms_thresh
+    _, b, v = sort_by_score(pre['boxes'], pre['scores'], pre['valid'])
+    k, _, _, _ = hold_each(b, v, t, errs)
+    check(torch.equal(k, _nms_sweep(b, v, t)), f'{label}: the sweep and plain differ')
+    shape = f'B={v.shape[0]} N={v.shape[1]}'
+    ms, _ = time_sweep(f'{shape} t={t} ({label}, {int(v.sum())} valid)', b, v, k, t, card, floor)
+    plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 3, warmup=1)
+    print(f'  [{card}] plain _nms_sweep {shape} ({label}): {plain_ms:.3f} ms; nms_sweep '
+          f'{ms:.4f} ms', flush=True)
+
+
 def to_dev(arrays, device):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
 
@@ -414,9 +447,10 @@ def random_weights(model, tame=False, score=1., fourier=1.):
 
     ``tame``: for deep residual encoders, whose random activations grow
     block by block until the score sigmoid saturates at exactly 1 (no
-    threshold gap, no ranking): the last norm of every residual branch is
-    scaled by 0.1, the score head's output layer by 0.25 and the refinement
-    head's by 0.01 (its logits would otherwise saturate ``3 tanh``).
+    threshold gap, no ranking): the last norm of every residual branch (a
+    ResNet block's, a MobileNetV3 block's ``project_bn``) is scaled by 0.1,
+    the score head's output layer by 0.25 and the refinement head's by 0.01
+    (its logits would otherwise saturate ``3 tanh``).
     ``score``, ``fourier``: further factors on those heads' output layers.
     """
     variables = init_jax_variables(model, SEED)
@@ -427,13 +461,16 @@ def random_weights(model, tame=False, score=1., fourier=1.):
                 for block in blocks.values():
                     last = block['bn3' if 'bn3' in block else 'bn2']['norm']
                     last.update({k: v * np.float32(0.1) for k, v in last.items()})
+            elif layer.startswith('block') and 'project_bn' in blocks:
+                last = blocks['project_bn']['norm']
+                last.update({k: v * np.float32(0.1) for k, v in last.items()})
         score *= 0.25
         params['refinement_head']['conv1']['kernel'] *= np.float32(0.01)
         params['refinement_head']['conv1']['bias'] *= np.float32(0.01)
     for head, factor in (('score_head', score), ('fourier_head', fourier)):
         if factor != 1.:
             params[head]['conv1']['kernel'] *= np.float32(factor)
-    return state_dict_from_jax(variables)
+    return state_dict_from_jax(variables, body_layout(model)[1])
 
 
 def threshold_above(probs, count):
@@ -545,19 +582,21 @@ def phase_kernels(rng, card, errs):
     return floor
 
 
-def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 2048)):
+def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 2048), score=1.,
+                      fourier=1.):
     """The model ``build(device=...)`` makes at 256^2, the card against the
     CPU, TF32 off: dense heads, valid sets before and after NMS, classes and
-    contours (phases 4, 8 and 12). The models get seeded random weights
-    unless ``image`` (``[1, 256, 256, C]``) is given: then they hold their
-    own. The score threshold leaves ``counts`` pixels above it."""
+    contours (phases 4, 8, 12 and 14). The models get seeded random weights
+    (``random_weights(tame, score, fourier)``) unless ``image`` (``[1, 256,
+    256, C]``) is given: then they hold their own. The score threshold
+    leaves ``counts`` pixels above it."""
     print(f'== {title} at {CHECK_SIZE}^2, card vs CPU, TF32 off', flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cpu_m = build(device='cpu')
     gpu_m = build()
     if image is None:
-        sd = random_weights(cpu_m, tame)
+        sd = random_weights(cpu_m, tame, score, fourier)
         cpu_m.load_state_dict(sd, strict=True)
         gpu_m.load_state_dict(sd, strict=True)
         image = rng.rand(1, CHECK_SIZE, CHECK_SIZE, 3).astype(np.float32)
@@ -634,9 +673,10 @@ def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 20
 
 
 def main_path(rng, card, errs, floor, title, build, tame=False,
-              runs=(('fp32', None, 1), ('bf16', torch.bfloat16, 4))):
-    """Phases 5 and 9: the model ``build(compute_dtype=...)`` makes on 1024^2
-    tiles in each of ``runs`` (name, compute dtype, batch)."""
+              runs=(('fp32', None, 1), ('bf16', torch.bfloat16, 4)), score=1.):
+    """Phases 5, 9 and 15: the model ``build(compute_dtype=...)`` makes on
+    1024^2 tiles in each of ``runs`` (name, compute dtype, batch), with
+    ``random_weights(tame, score)``."""
     print(f'== {title} on 1024^2 tiles', flush=True)
     torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
     torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's default for matmuls
@@ -646,7 +686,7 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
     for name, dtype, batch in runs:
         m = build(compute_dtype=dtype)
         if sd is None:
-            sd = random_weights(m, tame)
+            sd = random_weights(m, tame, score)
         m.load_state_dict(sd, strict=True)
         x = torch.from_numpy(rng.rand(batch, TILE, TILE, 3).astype(np.float32)).cuda()
         # score threshold from this configuration's own scores: at least
@@ -726,11 +766,12 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
                      'nms_resolve': lambda: _resolve_blocks(v, diag, pairs, removed, keep, 0, nb)}
             bounds = kernel_bounds(b, v, k, pairs, slots)
             for name_k, fn in plain.items():
-                kernel_rec[name_k] = dict(ms=dev[name_k][0], plain_ms=cuda_ms(fn, 2, warmup=1),
+                ms_k = None if dev is None else dev[name_k][0]
+                kernel_rec[name_k] = dict(ms=ms_k, plain_ms=cuda_ms(fn, 2, warmup=1),
                                           bound_ms=bounds[name_k][0], bound_by=bounds[name_k][1])
                 print(f'  [{card}] {name_k} B={batch} N=2048 ({name} main path, '
                       f'{"slots" if slots else "packed"} layout): '
-                      f'{dev[name_k][0]:.4f} ms on the device, plain '
+                      f'{"not measured" if ms_k is None else f"{ms_k:.4f} ms"} on the device, plain '
                       f'{kernel_rec[name_k]["plain_ms"]:.3f} ms, bound '
                       f'{bounds[name_k][0]:.6f} ms ({bounds[name_k][1]})', flush=True)
     return launches, kernel_rec
@@ -1164,9 +1205,10 @@ def read_launches():
     return {k.__name__: k.launches for k in kernels.KERNELS}
 
 
-def phase_train(card):
+def phase_train(card, errs, floor):
     """Phases 11b and 11c: ``CPNTrainer.fit`` on scripts/bench_train.py's
-    workload, then 30 steps on one batch and ``CPNTrainer.predict``.
+    workload, then 30 steps on one batch and ``CPNTrainer.predict`` (its NMS
+    call held and timed).
     Returns the NMS kernels' launches in ``predict``, the trainer and the
     images of its fixed batch."""
     print(f'== phase 11b: training, CpnU22 (full width, one channel), {TRAIN_SIZE}^2, batch '
@@ -1238,6 +1280,8 @@ def phase_train(card):
     for p in preds:
         check(p['contours'].shape[1:] == (TRAIN['samples'], 2) and all(
             np.isfinite(p[k]).all() for k in ('contours', 'boxes', 'scores')), 'predict: bad results')
+    time_forward_nms('a predict forward', trainer.model, trainer.model.prepare_inputs(held[0]),
+                     errs, card, floor)
     # batches[1], the fixed batch, holds items 8-15
     return launches, trainer, data[TRAIN_BATCH:2 * TRAIN_BATCH]
 
@@ -1390,18 +1434,8 @@ def phase_validate(card, fixed, ckpt, errs, floor):
             check(np.isfinite(r['metrics']['f1_np']), 'validate: f1_np not finite')
 
     # the NMS of one validation forward (the calibrated setting, first image)
-    x = torch.from_numpy(val[0][0][None]).cuda()
-    pre = trainer.model.forward_padded(x, nms=False)
-    t = trainer.model.nms_thresh
-    _, b, v = sort_by_score(pre['boxes'], pre['scores'], pre['valid'])
-    k, _, _, _ = hold_each(b, v, t, errs)
-    check(torch.equal(k, _nms_sweep(b, v, t)), 'validation NMS: the sweep and plain differ')
-    n_valid = int(v.sum())
-    ms, _ = time_sweep(f'B=1 N={v.shape[1]} t={t} (a validation forward, {n_valid} valid)', b, v,
-                       k, t, card, floor)
-    plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 3, warmup=1)
-    print(f'  [{card}] plain _nms_sweep B=1 N={v.shape[1]} (a validation forward): '
-          f'{plain_ms:.3f} ms; nms_sweep {ms:.4f} ms', flush=True)
+    time_forward_nms('a validation forward', trainer.model,
+                     torch.from_numpy(val[0][0][None]).cuda(), errs, card, floor)
 
     cpu_model = models.CpnU22(in_channels=1, device='cpu', **TRAIN)
     cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
@@ -1428,6 +1462,110 @@ def phase_validate(card, fixed, ckpt, errs, floor):
     check(worst <= 1, f'card and CPU counts differ by {worst} instances in an image')
     check(cpu_out['best_hparams'] == card_out['best_hparams'], 'best_hparams differ')
     return runs[False][3]
+
+
+# phase 14: each new family at full width and depth (as the JAX package builds
+# them), with random_weights' ``score`` and ``fourier`` factors beside its
+# tame 0.25 on the score head where these random weights put logits of 60-95
+# (ConvNeXtV2, DenseNet, ResUNet: the sigmoid saturates and leaves no gap for
+# a threshold) and Fourier coefficients of 60-230 (outlines across the whole
+# tile, of which NMS keeps one), and the score threshold's pixel ``counts``
+# where the score map is 32^2 (MaNet's stride 8)
+ZOO_CHECK = {'CpnConvNeXtBaseUNet': {}, 'CpnConvNeXtV2TinyUNet': dict(score=0.2, fourier=0.1),
+             'CpnDenseNet121UNet': dict(score=0.25, fourier=0.25), 'CpnMobileNetV3LargeUNet': {},
+             'CpnMobileNetV3SmallFPN': {}, 'CpnResNet50MaNet': dict(counts=(100, 500)),
+             'CpnResUNet': dict(score=0.1, fourier=0.1), 'CpnWideU22': {}}
+# phase 15: the zoo's main path on 1024^2 tiles (name, runs)
+ZOO_PATH = (('CpnConvNeXtBaseUNet', (('fp32', None, 1), ('bf16', torch.bfloat16, 4))),
+            ('CpnDenseNet121UNet', (('bf16', torch.bfloat16, 4),)),
+            ('CpnMobileNetV3LargeFPN', (('bf16', torch.bfloat16, 4),)),
+            ('CpnResNet50MaNet', (('bf16', torch.bfloat16, 4),)))
+_TV_BLOCK = {'dwconv': 0, 'norm': 2, 'mlp0': 3, 'mlp1': 5}
+
+
+def convnext_torchvision_layout(model, rng):
+    """A torchvision-layout ConvNeXt state dict of ``model``'s encoder shapes:
+    seeded numpy values, the stem with 3 input channels (the load adapts it
+    to the model's) and a classifier (the load drops it)."""
+    sd = {}
+    for key, t in model.state_dict().items():
+        if not key.startswith('core.backbone.body.'):
+            continue
+        mod, leaf = key[len('core.backbone.body.'):].rsplit('.', 1)
+        shape = tuple(t.shape)
+        if mod == 'stem_conv' and leaf == 'weight':
+            shape = (shape[0], 3) + shape[2:]
+        value = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        if mod.startswith('stem'):
+            sd[f'features.0.{0 if mod == "stem_conv" else 1}.{leaf}'] = value
+        elif mod.startswith('down'):
+            stage, part = int(mod[4:mod.index('_')]), mod.rsplit('_', 1)[1]
+            sd[f'features.{2 * stage}.{0 if part == "norm" else 1}.{leaf}'] = value
+        else:
+            block = mod.split('.')[0]
+            stage, j = int(block[5:block.index('_')]), int(block.rsplit('block', 1)[1])
+            base = f'features.{2 * stage + 1}.{j}'
+            if leaf == 'layer_scale':
+                sd[f'{base}.layer_scale'] = value.reshape(-1, 1, 1)
+            else:
+                sd[f'{base}.block.{_TV_BLOCK[mod.split(".")[1]]}.{leaf}'] = value
+    sd['classifier.2.weight'] = torch.from_numpy(rng.randn(1000, 768).astype(np.float32))
+    return sd
+
+
+def phase_pretrained(rng):
+    """Phase 14b: a synthetic torchvision ConvNeXt-Tiny state dict, written to
+    a temporary ``.pth``, loaded through ``backbone_kwargs={'pretrained': path}``
+    into a one-channel CpnConvNeXtTinyUNet on the card and on the CPU: the
+    encoders bit-equal to each other and to the file (the stem adapted to one
+    channel, the classifier dropped)."""
+    print('== phase 14b: pretrained ConvNeXt-Tiny encoder from a local .pth (torchvision '
+          'layout), card vs CPU', flush=True)
+    sd = convnext_torchvision_layout(models.CpnConvNeXtTinyUNet(1, device='cpu',
+                                                                torch_init=False), rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'convnext_tiny.pth')
+        torch.save(sd, path)
+        t0 = time.perf_counter()
+        gpu_m = models.CpnConvNeXtTinyUNet(1, backbone_kwargs=dict(pretrained=path))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cpu_m = models.CpnConvNeXtTinyUNet(1, backbone_kwargs=dict(pretrained=path),
+                                           device='cpu')
+    body = {k: v for k, v in cpu_m.state_dict().items() if k.startswith('core.backbone.body.')}
+    gpu = gpu_m.state_dict()
+    differ = [k for k, v in body.items() if not torch.equal(gpu[k].cpu(), v)]
+    check(not differ, f'pretrained encoders differ on card and CPU: {differ[:4]}')
+    check(torch.equal(body['core.backbone.body.stem_conv.weight'], sd['features.0.0.weight'][:, :1])
+          and torch.equal(body['core.backbone.body.stage2_block8.mlp1.weight'],
+                          sd['features.5.8.block.5.weight'])
+          and torch.equal(body['core.backbone.body.stage3_block2.layer_scale'],
+                          sd['features.7.2.layer_scale'].reshape(-1)),
+          'the encoder is not the file\'s')
+    print(f'  {len(body)} encoder tensors ({sum(v.numel() for v in body.values()):,} values) '
+          f'loaded: card == CPU == the file (stem adapted from 3 channels to 1); model built and '
+          f'loaded on the card in {secs:.2f} s', flush=True)
+
+
+def phase_zoo(rng, card, errs, floor):
+    """Phases 14 and 15: the rest of the zoo. Each new family at full width and
+    depth at 256^2, card against CPU (TF32 off, random weights tamed); the
+    pretrained load; then the main path of four zoo models on 1024^2 tiles.
+    Returns the NMS kernels' launches in phase 15's runs."""
+    for name, factors in ZOO_CHECK.items():
+        phase_card_vs_cpu(rng, f'phase 14: {name} (full width and depth)',
+                          lambda name=name, **kw: models.get_cpn(name)(3, **FLAGSHIP, **kw),
+                          tame=True, **factors)
+    phase_pretrained(rng)
+    launches = {k.__name__: 0 for k in kernels.KERNELS}
+    for name, runs in ZOO_PATH:
+        got, _ = main_path(rng, card, errs, floor, f'phase 15: the zoo\'s main path, {name}',
+                           lambda name=name, **kw: models.get_cpn(name)(3, **FLAGSHIP, **kw),
+                           tame=True, runs=runs,
+                           score=ZOO_CHECK.get(name, {}).get('score', 1.))
+        launches = {k: launches[k] + got[k] for k in launches}
+    print(f'  kernel launches in phase 15 (launches_zoo): {launches}', flush=True)
+    return launches
 
 
 def score_gap(a, b):
@@ -1470,6 +1608,8 @@ def main():
     launches, rec = main_path(rng, card, errs, floor, 'phase 5: main path, CpnU22 (full width)',
                               lambda **kw: models.CpnU22(in_channels=3, max_detections=2048,
                                                          samples=32, **kw))
+    check(all(rec[name]['ms'] is not None for name in SOURCES),
+          'the profiler never saw the main path\'s NMS kernels')
     phase_tiled_card_vs_cpu(rng)
     launches_tiled = phase_gigapixel(card, floor)
     phase_card_vs_cpu(rng, 'phase 8: CpnResNeXt101UNet (full width and depth)',
@@ -1488,11 +1628,12 @@ def main():
               tame=True, runs=(('bf16', torch.bfloat16, 4),))
     phase_tiled_flagship(card)
     phase_train_card_vs_cpu()
-    launches_train, trainer, fixed = phase_train(card)
+    launches_train, trainer, fixed = phase_train(card, errs, floor)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, 'last.ckpt')
         phase_checkpoints(rng, card, trainer, fixed, ckpt)
         launches_validate = phase_validate(card, fixed, ckpt, errs, floor)
+    launches_zoo = phase_zoo(rng, card, errs, floor)
     imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py'} & \
         set(sys.modules)
     check(not imported, f'{sorted(imported)} imported')
@@ -1502,7 +1643,7 @@ def main():
         'replaces': 'celldetection_tpu/kernels/nms_pallas.py:59',
         'launches': launches[name], 'launches_tiled': launches_tiled[name],
         'launches_resnet': launches_resnet[name], 'launches_train': launches_train[name],
-        'launches_validate': launches_validate[name],
+        'launches_validate': launches_validate[name], 'launches_zoo': launches_zoo[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

@@ -36,6 +36,7 @@ from celldetection_tpu.ops.boxes import box_iou
 from celldetection_tpu.util.torch_import import export_torch_state_dict
 from celldetection_tpu_torch import models as tmodels
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
+from celldetection_tpu_torch.util.weights import body_layout
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'fixtures')
 
@@ -85,13 +86,18 @@ def _slice_parity(name, backbone_kwargs, size, batch, capacity, seed, classes=2,
     """The port's CPN ``name`` against the JAX package's on the same weights:
     dense heads, valid sets before and after NMS, classes and contours.
 
-    ``scale_weights`` edits the JAX variables in place before both load them
-    (to keep a deep random network's scores off saturation). A ResNet body
-    is compared in its ``backbone_kwargs['fused_initial']`` layout.
+    ``name`` is a zoo name, or a pair of constructors ``(jax_ctor,
+    port_ctor)`` called with the keyword arguments of a zoo constructor
+    (``device='cpu'`` for the port's). ``scale_weights`` edits the JAX
+    variables in place before both load them (to keep a deep random
+    network's scores off saturation). A ResNet body is compared in the
+    layout of the port's model.
     """
     kw = dict(in_channels=3, max_detections=capacity, samples=32, classes=classes,
               backbone_kwargs=backbone_kwargs)
-    pm = tmodels.get_cpn(name)(device='cpu', **kw)
+    jctor, pctor = (jmodels.get_cpn(name), tmodels.get_cpn(name)) if isinstance(name, str) \
+        else name
+    pm = pctor(device='cpu', **kw)
     variables = init_jax_variables(pm, seed)
     # shrink the score logits (random weights give 10-15 at full width, where
     # fp32 sigmoids saturate and leave no gap for a threshold)
@@ -99,9 +105,9 @@ def _slice_parity(name, backbone_kwargs, size, batch, capacity, seed, classes=2,
     score_out.update({k: v * np.float32(0.25) for k, v in score_out.items()})
     if scale_weights is not None:
         scale_weights(variables)
-    fused = bool((backbone_kwargs or {}).get('fused_initial', False))
+    _, fused = body_layout(pm)
     pm.load_state_dict(state_dict_from_jax(variables, fused_initial=fused), strict=True)
-    jm = jmodels.get_cpn(name)(**kw)
+    jm = jctor(**kw)
     vj = jax.tree_util.tree_map(jnp.asarray, variables)
     x = np.random.RandomState(seed).rand(batch, size, size, 3).astype(np.float32)
     # one program gives the JAX package's detections and, caught on their way

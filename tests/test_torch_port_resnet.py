@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from celldetection_tpu import models as jmodels
 from celldetection_tpu.util.torch_import import export_torch_state_dict
@@ -85,9 +86,14 @@ def test_resnet_cpn_fp32_matches_jax(name, backbone_kwargs, size, batch, capacit
 
 
 def test_resnet_options_raise_until_ported():
-    """The options of later slices name what is missing rather than run wrongly."""
-    with pytest.raises(NotImplementedError, match='pyramid_pooling'):
-        tmodels.get_cpn('CpnResNet18UNet')(3, backbone_kwargs=dict(pyramid_pooling=True),
+    """The options of later slices name what is missing rather than run wrongly:
+    the ``MambaLayer`` secondary block and 3-D inputs (``pyramid_pooling`` and
+    ``pretrained``, ported since, are held in ``tests/test_torch_port_zoo.py``
+    and ``tests/test_torch_port_pretrained.py``)."""
+    with pytest.raises(NotImplementedError, match='secondary_block .MambaLayer.'):
+        tmodels.get_cpn('CpnResNet18UNet')(3, backbone_kwargs=dict(secondary_block=object),
                                           device='cpu')
-    with pytest.raises(NotImplementedError, match='pretrained'):
-        tmodels.get_cpn('CpnResNet50FPN')(3, backbone_kwargs=dict(pretrained=True), device='cpu')
+    model = tmodels.get_cpn('CpnResNet50FPN')(3, backbone_kwargs=dict(base_channel=8),
+                                             device='cpu')
+    with pytest.raises(NotImplementedError, match='3-D ResNet inputs'):
+        model.core.backbone.body(torch.zeros(1, 3, 8, 32, 32))

@@ -114,7 +114,7 @@ class _SharedDropout:
 
     def hook_port(self, model):
         for name, mod in model.named_modules():
-            if isinstance(mod, Dropout2d):
+            if type(mod) is Dropout2d:   # not stochastic depth, which flax draws otherwise
                 head = name.split('.')[1]
 
                 def hook(m, inputs, output, head=head):
