@@ -26,6 +26,9 @@ numpy versions that give the same output, point for point and bit for bit:
   self-intersecting contours and contours of 1 or 2 points come out as cv2's.
 * :func:`resolve_label_channels` dilates as ``cv2.dilate`` with the 3x3
   cross of ``cv2.getStructuringElement(MORPH_CROSS)``.
+* :func:`hsv2rgb_uint8` is ``cv2.cvtColor(COLOR_HSV2RGB)`` of one uint8
+  pixel, which :func:`contours2overlay` (327-430, with its shared-memory
+  multi-process renderer) draws its random colours with.
 """
 from collections import OrderedDict
 
@@ -38,7 +41,8 @@ from .segmentation import filter_instances_
 __all__ = ['CPNTargetGenerator', 'efd', 'fourier2contour', 'labels2contours',
            'contours2fourier', 'mask_labels_by_distance_', 'labels2distances',
            'outer_borders', 'chamfer_distance', 'contours2boxes', 'render_contour',
-           'clip_contour_', 'contours2labels', 'resolve_label_channels']
+           'clip_contour_', 'contours2labels', 'resolve_label_channels', 'contours2overlay',
+           'hsv2rgb_uint8']
 
 # cv2's values of the constants the JAX package passes
 RETR_EXTERNAL, CHAIN_APPROX_NONE, DIST_L2 = 0, 1, 2
@@ -703,6 +707,120 @@ def resolve_label_channels(labels: np.ndarray, method: str = 'dilation', max_ite
     else:
         lbl = labels.max(-1)
     return lbl.astype(labels.dtype)
+
+
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv2rgb_uint8(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, COLOR_HSV2RGB)`` of uint8 ``[..., 3]`` triples (hue
+    0-179), as cv2 converts one pixel: s and v scaled by ``1 / 255`` in
+    float32, the hue by ``6 / 180``, the sector's falling and rising edges
+    ``v * (1 - s * h)`` with ``1 - s * h`` fused (one rounding, as cv2's build
+    contracts it), and the result times 255 rounded half to even."""
+    f32, one = np.float32, np.float32(1)
+    hsv = np.asarray(hsv, np.uint8)
+    s = hsv[..., 1].astype(f32) * f32(1 / 255.)
+    v = hsv[..., 2].astype(f32) * f32(1 / 255.)
+    h = hsv[..., 0].astype(f32) * (f32(6) / f32(180))
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector.astype(f32)
+    falling = (1. - s.astype(np.float64) * h).astype(f32)          # a fused multiply-add
+    rising = (1. - s.astype(np.float64) * (one - h)).astype(f32)
+    tab = np.stack([v, v * (one - s), v * falling, v * rising], -1)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector % 6], -1)
+    return np.clip(np.rint(bgr[..., ::-1] * f32(255)), 0, 255).astype(np.uint8)
+
+
+def _random_rgb(rng: np.random.RandomState) -> tuple:
+    """One random overlay colour: hue, saturation and value drawn in that order."""
+    hsv = np.uint8([rng.randint(0, 180), rng.randint(60, 256), rng.randint(128, 256)])
+    return tuple(int(c) for c in hsv2rgb_uint8(hsv))
+
+
+def _paint(canvas, contour, rgb, size, thickness, rounded, clip):
+    contour = np.array(contour, dtype=float)
+    if rounded:
+        contour = np.round(contour)
+    if clip:
+        clip_contour_(contour, np.array(size) - 1)
+    a, (xmin, _), (ymin, _) = render_contour(contour, val=1, dtype='uint8', thickness=thickness)
+    region = canvas[ymin:ymin + a.shape[0], xmin:xmin + a.shape[1]]
+    m = (a > 0)[:region.shape[0], :region.shape[1]]
+    region[m] = tuple(rgb) + (255,)
+
+
+def contours2overlay(contours, size, colors=None, thickness=-1, rounded=True, clip=True,
+                     seed=None, processes: int = None) -> np.ndarray:
+    """RGBA uint8 overlay ``[*size, 4]`` of filled contours, later ones on top.
+
+    Args:
+        colors: Optional per-instance RGB(A) uint8 colours ``[n, 3|4]``
+            (cycled); else random HSV colours from ``RandomState(seed)``, as
+            the JAX package draws them.
+        processes: More than 1 (and more than 256 contours, no ``colors``):
+            the canvas lies in shared memory and chunks of contours render in
+            that many worker processes, each contour in a colour from a seed
+            of its own.
+    """
+    if colors is None and processes and processes > 1 and contours is not None \
+            and len(contours) > 256:
+        return _contours2overlay_mp(contours, size, thickness=thickness, rounded=rounded,
+                                    clip=clip, seed=seed, processes=processes)
+    rng = np.random.RandomState(seed)
+    overlay = np.zeros(tuple(size) + (4,), dtype=np.uint8)
+    if contours is None or len(contours) == 0:
+        return overlay
+    for ci, contour in enumerate(contours):
+        if colors is not None:
+            rgb = tuple(int(c) for c in np.asarray(colors[ci % len(colors)], np.uint8)[:3])
+        else:
+            rgb = _random_rgb(rng)
+        _paint(overlay, contour, rgb, size, thickness, rounded, clip)
+    return overlay
+
+
+_MP_OVERLAY = {}
+
+
+def _overlay_worker_init(shm_name, shape):
+    from multiprocessing import shared_memory
+    shm = shared_memory.SharedMemory(name=shm_name)
+    _MP_OVERLAY['shm'] = shm  # kept open for the worker's lifetime
+    _MP_OVERLAY['canvas'] = np.ndarray(shape, dtype=np.uint8, buffer=shm.buf)
+
+
+def _overlay_worker(args):
+    chunk, seeds, size, thickness, rounded, clip = args
+    canvas = _MP_OVERLAY['canvas']
+    for contour, seed_i in zip(chunk, seeds):
+        _paint(canvas, contour, _random_rgb(np.random.RandomState(seed_i)), size, thickness,
+               rounded, clip)
+    return len(chunk)
+
+
+def _contours2overlay_mp(contours, size, thickness=-1, rounded=True, clip=True, seed=None,
+                         processes=4) -> np.ndarray:
+    """The overlay rendered by ``processes`` workers into a shared-memory
+    canvas, in chunks of contours; where instances overlap, the chunk painted
+    last wins."""
+    from multiprocessing import Pool, shared_memory
+    shape = tuple(size) + (4,)
+    shm = shared_memory.SharedMemory(create=True, size=int(np.prod(shape)))
+    try:
+        canvas = np.ndarray(shape, dtype=np.uint8, buffer=shm.buf)
+        canvas[:] = 0
+        seeds = np.random.RandomState(seed).randint(0, 2 ** 31, size=len(contours))
+        n_chunks = min(processes * 4, max(len(contours) // 64, 1))
+        jobs = [([contours[i] for i in ids], seeds[ids], size, thickness, rounded, clip)
+                for ids in np.array_split(np.arange(len(contours)), n_chunks) if len(ids)]
+        with Pool(processes, initializer=_overlay_worker_init,
+                  initargs=(shm.name, shape)) as pool:
+            pool.map(_overlay_worker, jobs)
+        return canvas.copy()
+    finally:
+        shm.close()
+        shm.unlink()
 
 
 class CPNTargetGenerator:

@@ -1,15 +1,22 @@
 """Host-side image and contour helpers (numpy).
 
 Counterpart of ``celldetection_tpu/data/misc.py``: ``normalize_percentile``
-(79-100), ``random_crop`` (103-111), ``random_pad`` (114-124) and
-``resample_contours`` (143-179), copied so that the port imports nothing of
-the JAX package.
+(79-100), ``random_crop`` (103-111), ``random_pad`` (114-124),
+``resample_contours`` (143-179), ``labels2properties`` (195-225),
+``regionprops2d`` (228-238) and ``labels2property_table`` (254-299), copied
+so that the port imports nothing of the JAX package. The JAX package's
+property table is a ``pandas.DataFrame``; the port's is a
+:class:`PropertyTable` of the same columns and rows, written as pandas'
+``to_csv(index=False)`` writes that frame, without pandas.
 """
+import csv
+import numbers
 from typing import Union
 
 import numpy as np
 
-__all__ = ['normalize_percentile', 'random_crop', 'random_pad', 'resample_contours']
+__all__ = ['normalize_percentile', 'random_crop', 'random_pad', 'resample_contours',
+           'labels2properties', 'regionprops2d', 'labels2property_table', 'PropertyTable']
 
 
 def normalize_percentile(image: np.ndarray, percentile=99.9, to_uint8: bool = False,
@@ -94,3 +101,136 @@ def resample_contours(contours, num: Union[int, float, None] = None, close: bool
     alpha = ((flat_t - flat_arc[r, k]) / (flat_arc[r, k + 1] - flat_arc[r, k]))[..., None]
     out = flat_pts[r, k] * (1 - alpha) + flat_pts[r, k + 1] * alpha
     return out.reshape(pts.shape[:-2] + (num, 2))
+
+
+def labels2properties(labels: np.ndarray, *properties, offset=(0, 0), spacing=None):
+    """Per-region rows of the named properties (label, bbox, image, coords,
+    area, centroid) of a label image ``[H, W]`` or ``[H, W, C]``; ``offset``
+    (pixels) shifts bbox, coords and centroid; ``spacing`` scales area and
+    centroid to physical units. One property gives its values, not rows."""
+    from ._regionprops import regionprops
+    if len(properties) == 1 and isinstance(properties[0], (list, tuple)):
+        properties, = properties
+    if labels.ndim == 2:
+        labels = labels[..., None]
+    rows = []
+    for z in range(labels.shape[2]):
+        for p in regionprops(labels[..., z], spacing=spacing):
+            row = []
+            for name in properties:
+                v = getattr(p, name)
+                if name == 'bbox' and any(offset):
+                    v = (v[0] + offset[0], v[1] + offset[1], v[2] + offset[0], v[3] + offset[1])
+                elif name == 'coords' and any(offset):
+                    v = v + np.asarray(offset)
+                elif name == 'centroid' and any(offset):
+                    # the offset is in pixels: scaled by the spacing like the centroid
+                    off = np.asarray(offset, float)
+                    if spacing is not None:
+                        off = off * np.broadcast_to(
+                            np.atleast_1d(np.asarray(spacing, float)), off.shape)
+                    v = tuple(np.asarray(v) + off)
+                row.append(v)
+            rows.append(row if len(properties) > 1 else row[0])
+    return rows
+
+
+def regionprops2d(label_image: np.ndarray, **kwargs):
+    """Region properties of each channel of a label image ``[H, W]`` or
+    ``[H, W, C]``, channel after channel."""
+    from ._regionprops import regionprops
+    assert label_image.ndim in (2, 3)
+    if label_image.ndim == 2:
+        label_image = label_image[..., None]
+    for z in range(label_image.shape[2]):
+        yield from regionprops(label_image[..., z], **kwargs)
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, numbers.Integral) and not isinstance(v, (bool, np.bool_))
+
+
+class PropertyTable:
+    """Region properties as rows under named columns: the columns and rows of
+    the JAX package's ``pd.DataFrame``, without pandas.
+
+    ``rows`` are dicts; a row that lacks a column holds nothing there.
+    :meth:`to_csv` writes what pandas' ``DataFrame.to_csv(index=False)``
+    writes: a column of integers alone as integers, any other number column
+    as floats (``repr``, so ``3.0``), a missing value as an empty field.
+    """
+
+    def __init__(self, columns, rows):
+        self.columns = list(columns)
+        self.rows = list(rows)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def column(self, name) -> list:
+        """The column's values, ``None`` where a row lacks it."""
+        return [r.get(name) for r in self.rows]
+
+    def _format(self, name):
+        values = [v for v in self.column(name) if v is not None]
+        complete = len(values) == len(self.rows)
+        if complete and all(_is_int(v) for v in values):
+            return lambda v: str(int(v))
+        if all(isinstance(v, numbers.Real) for v in values):
+            return lambda v: '' if v is None else repr(float(v))
+        return lambda v: '' if v is None else str(v)
+
+    def to_csv(self, path):
+        """Write the table as CSV (a header line, then one line per row, no
+        index column)."""
+        formats = [self._format(c) for c in self.columns]
+        with open(path, 'w', newline='') as f:
+            writer = csv.writer(f, lineterminator='\n')
+            writer.writerow(self.columns)
+            for row in self.rows:
+                writer.writerow([fmt(row.get(c)) for fmt, c in zip(formats, self.columns)])
+
+
+def labels2property_table(labels: np.ndarray, *properties, iter_channels: bool = True,
+                          spacing=None, separator: str = '-', **kwargs) -> PropertyTable:
+    """Per-region property table.
+
+    The channels of a multi-channel label image are iterated and their
+    regions concatenated unless ``iter_channels`` is False (then the stack
+    is one n-d label image). Vector properties expand into
+    ``separator``-joined columns (``bbox-0`` ... as ``regionprops_table``),
+    also where the table is empty; ``spacing`` scales area and centroid to
+    physical units.
+    """
+    from ._regionprops import regionprops
+    if len(properties) == 1 and isinstance(properties[0], (list, tuple)):
+        properties, = properties
+    if iter_channels and labels.ndim > 2:
+        props = []
+        for z in range(labels.shape[2]):
+            props += regionprops(labels[..., z], spacing=spacing)
+    else:
+        props = regionprops(labels, spacing=spacing)
+    nd = labels.ndim if not (iter_channels and labels.ndim > 2) else 2
+    widths = {'bbox': 2 * nd, 'centroid': nd}
+    columns = []
+    for name in properties:
+        if name in widths:
+            columns += [f'{name}{separator}{i}' for i in range(widths[name])]
+        else:
+            columns.append(name)
+    data = []
+    for p in props:
+        row = {}
+        for name in properties:
+            v = getattr(p, name)
+            if np.ndim(v) == 0 or name == 'coords':
+                row[name] = v
+            else:
+                for i, vi in enumerate(np.asarray(v).reshape(-1)):
+                    row[f'{name}{separator}{i}'] = vi
+        data.append(row)
+        for k in row:
+            if k not in columns:
+                columns.append(k)
+    return PropertyTable(columns, data)

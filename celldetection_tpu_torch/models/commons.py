@@ -5,7 +5,7 @@ Counterpart of ``celldetection_tpu/models/commons.py``: ``get_activation``
 training), ``ConvNorm`` (203-221), ``ConvNormRelu`` (224-239),
 ``TwoConvNormRelu`` (242-262), ``ScaledTanh`` (269-275), ``ResBlock``
 (287-310), ``ReadOut`` (348-384), ``fused_head_conv`` and ``FusableReadOut``
-(406-474), ``Normalize`` (503-522).
+(406-474), ``Fuse`` (477-497), ``Normalize`` (503-522).
 
 The U-Net family's submodules are ``nn.Sequential`` with the reference torch
 layout, so the state-dict keys are the ones ``export_torch_state_dict``
@@ -21,9 +21,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.commons import interpolate_nchw
+
 __all__ = ['get_activation', 'Norm', 'NamedNorm', 'ConvNorm', 'ConvNormRelu', 'TwoConvNormRelu',
            'ResBlock', 'ScaledTanh', 'Normalize', 'Dropout2d', 'StochasticDepth', 'ReadOut',
-           'FusableReadOut', 'fused_head_conv', 'same_padding']
+           'FusableReadOut', 'fused_head_conv', 'Fuse', 'same_padding']
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9    # flax's convention: running = momentum * running + (1 - momentum) * batch
@@ -370,3 +372,22 @@ def fused_head_conv(x: torch.Tensor, convs: Sequence[nn.Conv2d], stride: int,
     weight = torch.cat([c.weight for c in convs], 0)
     bias = torch.cat([c.bias for c in convs], 0)
     return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+
+
+class Fuse(nn.Module):
+    """Feature fusion of NCHW maps: each resized (nearest) to the first
+    map's size, concatenated, then conv, norm and activation in ``block``
+    (conv 0, norm 1, the reference's ``Fuse2d`` layout)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 padding: int = 0, activation='relu', norm_layer: str = 'batchnorm2d'):
+        super().__init__()
+        self.block = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, kernel_size, padding=padding),
+            Norm(out_channels, norm_layer),
+            get_activation(activation))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        target = xs[0].shape[2:]
+        xs = [x if x.shape[2:] == target else interpolate_nchw(x, target, 'nearest') for x in xs]
+        return self.block(torch.cat(xs, 1))

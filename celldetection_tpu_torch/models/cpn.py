@@ -37,7 +37,8 @@ from torch import nn
 from ..ops import loss as L
 from ..ops.commons import clip, downsample_labels, interpolate_nchw, process_scores
 from ..ops.cpn import (batched_box_nms, fouriers2contours, order_weighting,
-                       rel_location2abs_location, scale_contours, scale_fourier)
+                       rel_location2abs_location, resolve_refinement_buckets, scale_contours,
+                       scale_fourier)
 from ..util.device import resolve_device
 from ..util.init import torch_init_
 from . import fpn as fpn_lib
@@ -45,61 +46,88 @@ from . import manet as manet_lib
 from . import resnet as resnet_lib
 from . import unet as unet_lib
 from .host_encoder import build_host_encoder, resolve_native_encoder
-from .commons import Dropout2d, FusableReadOut, ReadOut, ScaledTanh, fused_head_conv
+from .commons import Dropout2d, FusableReadOut, Fuse, ReadOut, ScaledTanh, fused_head_conv
 
 __all__ = ['CPNCore', 'CPN', 'cpn_decode', 'cpn_compute_loss', 'DEFAULT_WEIGHTS',
            'apply_detection_offsets', 'local_refinement', 'get_cpn', 'models_by_name', 'CpnU22',
            'CpnSlimU22', 'CpnWideU22', 'CpnResUNet', 'CpnU17', 'CpnU12']
 
 
+def _level_channels(backbone_channels, key) -> int:
+    """Channels of the decoder level ``key`` (``'0'``, ``'1'``, ...)."""
+    if not (isinstance(key, str) and key.isdigit()):
+        raise NotImplementedError(f'head feature {key!r}: only decoder levels are ported '
+                                  f'(encoder features are not)')
+    return backbone_channels[int(key)]
+
+
 class CPNCore(nn.Module):
-    """Backbone + dense CPN heads (score, location, Fourier, refinement).
+    """Backbone + dense CPN heads (score, location, Fourier, refinement, uncertainty).
 
     Takes NHWC input and returns NHWC dense maps: ``scores [B,h,w,C]``,
     ``locations [B,h,w,2]``, ``fourier [B,h,w,order*4]``, ``refinement
-    [B,H,W,2*buckets]`` (input resolution) or None, ``uncertainty`` None.
-    Convolutions run NCHW; with NHWC input they keep channels-last strides.
-    Head features are single decoder levels (``'0'``, ``'1'``, ...); fused
-    multi-level features and the uncertainty head belong to later slices.
+    [B,H,W,2*buckets]`` (input resolution) or None, ``uncertainty [B,h,w,4]``
+    (sigmoid) or None. Convolutions run NCHW; with NHWC input they keep
+    channels-last strides. A head reads one decoder level (``'0'``, ``'1'``,
+    ...) or, for a tuple or list of levels, their fusion by a
+    :class:`.commons.Fuse` named ``<head>_fuse`` (the refinement's
+    ``refinement_fuse``), which keeps the first level's channels.
     """
 
     def __init__(self, backbone: nn.Module, backbone_channels, order: int, score_channels: int,
                  refinement: bool = True, refinement_margin: float = 3.,
                  uncertainty_head: bool = False, contour_features='1', location_features='1',
-                 score_features='1', refinement_features='0',
+                 uncertainty_features='1', score_features='1', refinement_features='0',
                  contour_head_channels: Optional[int] = None, contour_head_stride: int = 1,
                  refinement_head_channels: Optional[int] = None, refinement_head_stride: int = 1,
                  refinement_interpolation: str = 'bilinear', refinement_buckets: int = 1,
                  refinement_full_res: bool = True, kernel_size_score: int = 7,
                  kernel_size_location: int = 7, kernel_size_fourier: int = 7,
-                 kernel_size_refinement: int = 7, head_activation='relu'):
+                 kernel_size_refinement: int = 7, kernel_size_uncertainty: int = 7,
+                 head_activation='relu'):
         super().__init__()
-        if uncertainty_head:
-            raise NotImplementedError('the uncertainty head is not ported yet')
-        keys = (score_features, location_features, contour_features, refinement_features)
-        if not all(isinstance(k, str) and k.isdigit() for k in keys):
-            raise NotImplementedError(f'head features {keys}: only single decoder levels '
-                                      f'are ported')
+        if refinement_buckets < 1:
+            raise ValueError(f'refinement_buckets={refinement_buckets}: at least 1')
         self.backbone = backbone
-        self.specs = (('score', score_features, score_channels, kernel_size_score),
-                      ('location', location_features, 2, kernel_size_location),
-                      ('fourier', contour_features, order * 4, kernel_size_fourier))
-        for name, key, out_c, ksize in self.specs:
+        specs = [('score', score_features, score_channels, kernel_size_score, None),
+                 ('location', location_features, 2, kernel_size_location, None),
+                 ('fourier', contour_features, order * 4, kernel_size_fourier, None)]
+        if uncertainty_head:
+            specs.append(('uncertainty', uncertainty_features, 4, kernel_size_uncertainty,
+                          'sigmoid'))
+        self.specs = tuple(specs)
+        for name, keys, out_c, ksize, final in self.specs:
             setattr(self, f'{name}_head', FusableReadOut(
-                backbone_channels[int(key)], out_c, kernel_size=ksize,
+                self._head_input(name, keys, backbone_channels), out_c, kernel_size=ksize,
                 channels_mid=contour_head_channels, stride=contour_head_stride,
-                activation=head_activation))
-        # The contour heads fuse into one conv when they read the same map
-        # with the same geometry (always, at the defaults).
-        self.fusable = len({s[1] for s in self.specs}) == 1 and len({s[3] for s in self.specs}) == 1
+                activation=head_activation, final_activation=final))
+        # The contour heads fuse into one conv when they read the same single
+        # level with the same geometry (always, at the defaults).
+        keys = [k for _, k, *_ in self.specs]
+        self.fusable = all(isinstance(k, str) for k in keys) and len(set(keys)) == 1 and \
+            len({s[3] for s in self.specs}) == 1
         self.refinement_features = refinement_features
         self.refinement_interpolation = refinement_interpolation
         self.refinement_full_res = refinement_full_res
         self.refinement_head = ReadOut(
-            backbone_channels[int(refinement_features)], 2 * refinement_buckets,
-            kernel_size=kernel_size_refinement, channels_mid=refinement_head_channels,
-            stride=refinement_head_stride, activation=head_activation,
+            self._head_input('refinement', refinement_features, backbone_channels),
+            2 * refinement_buckets, kernel_size=kernel_size_refinement,
+            channels_mid=refinement_head_channels, stride=refinement_head_stride,
+            activation=head_activation,
             final_activation=ScaledTanh(refinement_margin)) if refinement else None
+
+    def _head_input(self, name: str, keys, backbone_channels) -> int:
+        """The head's input channels; adds ``<name>_fuse`` for several levels."""
+        if not isinstance(keys, (tuple, list)):
+            return _level_channels(backbone_channels, keys)
+        channels = [_level_channels(backbone_channels, k) for k in keys]
+        setattr(self, f'{name}_fuse', Fuse(sum(channels), channels[0]))
+        return channels[0]
+
+    def _features(self, features, name: str, keys) -> torch.Tensor:
+        if isinstance(keys, (tuple, list)):
+            return getattr(self, f'{name}_fuse')([features[k] for k in keys])
+        return features[keys]
 
     def forward(self, inputs: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
         x = inputs.permute(0, 3, 1, 2)
@@ -115,18 +143,19 @@ class CPNCore(nn.Module):
                 outs.append(h.tail(mid[:, off:off + c]))
                 off += c
         else:
-            outs = [h(features[key]) for h, (_, key, *_) in zip(heads, self.specs)]
-        scores, locations, fourier = (o.permute(0, 2, 3, 1) for o in outs)
+            outs = [h(self._features(features, name, keys))
+                    for h, (name, keys, *_) in zip(heads, self.specs)]
+        dense = {name: o.permute(0, 2, 3, 1) for (name, *_), o in zip(self.specs, outs)}
         refinement = None
         if self.refinement_head is not None:
-            ref = features[self.refinement_features]
+            ref = self._features(features, 'refinement', self.refinement_features)
             if self.refinement_full_res:
                 ref = interpolate_nchw(ref, x.shape[2:], self.refinement_interpolation)
             ref = self.refinement_head(ref)
             refinement = interpolate_nchw(ref, x.shape[2:],
                                           self.refinement_interpolation).permute(0, 2, 3, 1)
-        return dict(scores=scores, locations=locations, refinement=refinement, fourier=fourier,
-                    uncertainty=None)
+        return dict(scores=dense['score'], locations=dense['location'], refinement=refinement,
+                    fourier=dense['fourier'], uncertainty=dense.get('uncertainty'))
 
 
 def _gather_hw(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -139,26 +168,44 @@ def _gather_hw(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops: int,
-                     num_buckets: int, original_size):
+                     num_buckets: int, original_size, sampling: Optional[torch.Tensor] = None):
     """Iterative offset-field refinement of ``[B, K, S, 2]`` (x, y) contours.
 
     Each loop rounds half to even, clamps to the image, truncates to integer
     pixels and adds the field's offset there; the field may be bf16, the
     positions stay fp32. The rounded positions carry no gradient (JAX's
-    ``stop_gradient``); the offsets do. Returns ``(refined, all_iterations)``.
+    ``stop_gradient``); the offsets do. With ``num_buckets`` > 1 the field
+    holds an (x, y) pair per bucket of the contour parameter ``sampling``
+    (``[S]`` or ``[B, K, S]``), and a point's offset mixes the three buckets
+    around its parameter with triangle weights
+    (:func:`..ops.cpn.resolve_refinement_buckets`). Returns ``(refined,
+    all_iterations)``.
     """
-    if num_buckets != 1:
-        raise NotImplementedError('refinement buckets > 1 are not ported yet')
     h, w = original_size
     all_out = []
     det = contours
+    taps = None
+    if num_buckets != 1:
+        if sampling is None:
+            raise ValueError('refinement buckets need the contour sampling')
+        shape = contours.shape[:3]
+        taps = [(idx.expand(shape).long(), wt.expand(shape))
+                for idx, wt in resolve_refinement_buckets(sampling, num_buckets)]
     for _ in range(num_loops):
         det = torch.round(det).detach()
         det = torch.stack([det[..., 0].clamp(0, w - 1), det[..., 1].clamp(0, h - 1)], -1)
         flat = det[..., 1].long() * w + det[..., 0].long()        # [B, K, S]
         b, k, s = flat.shape
-        resp = _gather_hw(refinement, flat.reshape(b, k * s)).reshape(b, k, s, -1)
-        det = det + resp[..., :2].to(det.dtype)
+        resp = _gather_hw(refinement, flat.reshape(b, k * s)).reshape(b, k, s, -1).to(det.dtype)
+        if taps is None:
+            responses = resp[..., :2]
+        else:
+            responses = None
+            for idx, wt in taps:
+                cur = torch.gather(resp, -1, torch.stack((idx * 2, idx * 2 + 1), -1))
+                cur = cur * wt[..., None]
+                responses = cur if responses is None else responses + cur
+        det = det + responses
         all_out.append(det)
     return det, all_out
 
@@ -166,6 +213,7 @@ def local_refinement(contours: torch.Tensor, refinement: torch.Tensor, num_loops
 def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, order: int,
                samples: int, score_channels: int, score_thresh, max_detections: int,
                refinement_iterations: int, refinement_buckets: int,
+               certainty_thresh: Optional[float] = None,
                sampling: Optional[torch.Tensor] = None, labels: Optional[torch.Tensor] = None,
                priority: Optional[torch.Tensor] = None,
                scores_lower_bound=None, scores_upper_bound=None,
@@ -173,6 +221,8 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
     """Dense head outputs → capacity-padded detections (no NMS).
 
     Args:
+        certainty_thresh: With an uncertainty map, only pixels whose mean
+            uncertainty lies below ``1 - certainty_thresh`` are foreground.
         sampling: Optional ``[B, S]`` contour sampling (training targets).
         labels: Optional ``[B, H', W']`` target labels: the foreground comes
             from them (max-pooled to the score map), not from the scores.
@@ -183,7 +233,7 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
 
     Returns ``contours [B,K,S,2], boxes [B,K,4], scores [B,K], classes [B,K],
     locations [B,K,2], fourier [B,K,order,4], contour_proposals,
-    all_refined (tuple), box_uncertainties (None), valid [B,K], fg_index
+    all_refined (tuple), box_uncertainties [B,K,4] (or None), valid [B,K], fg_index
     [B,K], fg_labels [B,K], fg_count [B], dense_scores, dense_labels``.
     """
     raw_scores = dense['scores']
@@ -191,8 +241,11 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
     scores, classes = process_scores(raw_scores, score_channels, score_thresh,
                                      scores_lower_bound, scores_upper_bound)
     fourier = dense['fourier'].reshape(b_dim, h, w, -1, 4)[..., :order, :]
+    uncertainty = dense.get('uncertainty')
     labels = classes if labels is None else downsample_labels(labels.float(), (h, w))
     fg_mask = labels > 0
+    if certainty_thresh is not None and uncertainty is not None:
+        fg_mask = fg_mask & (uncertainty.mean(-1) < (1 - certainty_thresh))
     if score_channels in (1, 2):
         sel_score = scores[..., 0]
     else:
@@ -218,10 +271,11 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
     sel_classes = _gather_hw(classes[..., None], top_idx)[..., 0]
     sel_scores = _gather_hw(sel_score[..., None], top_idx)[..., 0]
     sel_labels = _gather_hw(labels[..., None].float(), top_idx)[..., 0]
+    sel_uncertainty = None if uncertainty is None else _gather_hw(uncertainty, top_idx)
     if sampling is not None:
         sampling = sampling[:, None, :].expand(b_dim, max_detections, sampling.shape[-1])
-    proposals, _ = fouriers2contours(sel_fourier, sel_locations, samples=samples,
-                                     sampling=sampling)
+    proposals, sampling = fouriers2contours(sel_fourier, sel_locations, samples=samples,
+                                            sampling=sampling)
 
     actual_size = (h, w)
     proposals = scale_contours(actual_size, input_size, proposals)
@@ -230,7 +284,7 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
     refinement = dense['refinement']
     if refinement is not None and refinement_iterations > 0:
         contours, all_refined = local_refinement(proposals, refinement, refinement_iterations,
-                                                 refinement_buckets, input_size)
+                                                 refinement_buckets, input_size, sampling)
     else:
         contours, all_refined = proposals, [proposals]
     all_refined = [torch.stack([clip(c[..., 0], 0, input_size[1] - 1),
@@ -239,7 +293,7 @@ def cpn_decode(dense: Dict[str, torch.Tensor], input_size: Tuple[int, int], *, o
     boxes = torch.cat((contours.amin(-2), contours.amax(-2)), -1)
     out = dict(contours=contours, boxes=boxes, scores=sel_scores, classes=sel_classes,
                locations=sel_locations, fourier=sel_fourier, contour_proposals=proposals,
-               all_refined=tuple(all_refined), box_uncertainties=None, valid=valid,
+               all_refined=tuple(all_refined), box_uncertainties=sel_uncertainty, valid=valid,
                fg_index=top_idx, fg_labels=sel_labels, fg_count=fg_count,
                dense_scores=raw_scores, dense_labels=labels)
     if offsets is not None:
@@ -357,6 +411,10 @@ def cpn_compute_loss(decoded: Dict[str, torch.Tensor], targets: Dict[str, torch.
     return sum(losses.values()), losses
 
 
+_HEAD_DEFAULTS = dict(uncertainty_nms=False, contour_features='1', location_features='1',
+                      score_features='1', uncertainty_features='1', refinement_features='0')
+
+
 class CPN(nn.Module):
     """Contour Proposal Network (user-facing).
 
@@ -372,8 +430,16 @@ class CPN(nn.Module):
         order_weights: True weighs the Fourier loss per order
             (:func:`..ops.cpn.order_weighting`), False not at all; or the
             ``[order, 1]`` weights themselves.
-        uncertainty_factor: Scale of the box-uncertainty loss (the
-            uncertainty head itself is not ported).
+        certainty_thresh: Foreground needs a mean uncertainty below
+            ``1 - certainty_thresh`` (with the uncertainty head).
+        uncertainty_head: Adds a head of 4 sigmoid box-edge uncertainties,
+            ``box_uncertainties`` per detection, and the ``uncertainty``
+            loss term.
+        uncertainty_nms: NMS ranks by ``scores * (1 - mean uncertainty)``.
+        uncertainty_factor: Scale of the box-uncertainty loss.
+        contour_features, location_features, score_features,
+        uncertainty_features, refinement_features: Each head's decoder
+            level, or a tuple or list of levels to fuse (:class:`CPNCore`).
         compute_dtype: e.g. ``torch.bfloat16``: the parameters (fp32) and the
             input are cast for the backbone and heads, and decoding runs in
             fp32, except the refinement field, which stays in that dtype.
@@ -389,7 +455,9 @@ class CPN(nn.Module):
                  score_thresh: float = .9, samples: int = 32, classes: int = 2,
                  refinement: bool = True, refinement_iterations: int = 4,
                  refinement_margin: float = 3., refinement_buckets: int = 1,
-                 contour_features='1', location_features='1', score_features='1',
+                 certainty_thresh: Optional[float] = None, uncertainty_head: bool = False,
+                 uncertainty_nms: bool = False, contour_features='1', location_features='1',
+                 score_features='1', uncertainty_features='1',
                  refinement_features='0', contour_head_channels: int = None,
                  contour_head_stride: int = 1, refinement_head_channels: int = None,
                  refinement_head_stride: int = 1, refinement_interpolation: str = 'bilinear',
@@ -401,6 +469,7 @@ class CPN(nn.Module):
         self.order = order
         self.nms_thresh = nms_thresh
         self.score_thresh = score_thresh
+        self.certainty_thresh = certainty_thresh
         self.samples = samples
         self.score_channels = 1 if classes in (1, 2) else classes
         self.refinement = refinement
@@ -415,7 +484,8 @@ class CPN(nn.Module):
         self.weights = dict(DEFAULT_WEIGHTS)
         self.iou_loss_enabled = True
         self.box_loss_enabled = False
-        self.uncertainty_head = False
+        self.uncertainty_head = uncertainty_head
+        self.uncertainty_nms = uncertainty_nms
         self.uncertainty_factor = uncertainty_factor
         if order_weights is True:
             self.order_weights = order_weighting(order)
@@ -426,7 +496,8 @@ class CPN(nn.Module):
         self.core = CPNCore(
             backbone, tuple(backbone.feature_channels), order, self.score_channels,
             refinement=refinement, refinement_margin=refinement_margin,
-            contour_features=contour_features, location_features=location_features,
+            uncertainty_head=uncertainty_head, contour_features=contour_features,
+            location_features=location_features, uncertainty_features=uncertainty_features,
             score_features=score_features, refinement_features=refinement_features,
             contour_head_channels=contour_head_channels, contour_head_stride=contour_head_stride,
             refinement_head_channels=refinement_head_channels,
@@ -437,7 +508,14 @@ class CPN(nn.Module):
                             samples=samples, classes=classes, refinement=refinement,
                             refinement_iterations=refinement_iterations,
                             refinement_buckets=refinement_buckets,
-                            max_detections=max_detections)
+                            uncertainty_head=uncertainty_head, max_detections=max_detections)
+        # the head options a file must name to rebuild this model (the JAX
+        # package's files leave them out, so they load with them as overrides)
+        options = dict(uncertainty_nms=uncertainty_nms, contour_features=contour_features,
+                       location_features=location_features, score_features=score_features,
+                       uncertainty_features=uncertainty_features,
+                       refinement_features=refinement_features)
+        self.hparams.update({k: v for k, v in options.items() if v != _HEAD_DEFAULTS[k]})
         # dropout and stochastic depth (a Dropout2d): their generator is set per call
         self._dropouts = [m for m in self.core.modules() if isinstance(m, Dropout2d)]
         self.to(device)
@@ -507,7 +585,8 @@ class CPN(nn.Module):
             score_channels=self.score_channels, score_thresh=score_thresh,
             max_detections=self.max_detections if max_detections is None else max_detections,
             refinement_iterations=self.refinement_iterations if self.refinement else 0,
-            refinement_buckets=self.refinement_buckets, sampling=sampling, labels=labels,
+            refinement_buckets=self.refinement_buckets, certainty_thresh=self.certainty_thresh,
+            sampling=sampling, labels=labels,
             priority=priority, scores_lower_bound=scores_lower_bound,
             scores_upper_bound=scores_upper_bound,
             offsets=None if targets is not None else offsets)
@@ -523,8 +602,10 @@ class CPN(nn.Module):
             if offsets is not None:
                 decoded = apply_detection_offsets(decoded, offsets)
         if nms and not train:
-            keep = batched_box_nms(decoded['boxes'], decoded['scores'], decoded['valid'],
-                                   self.nms_thresh)
+            weights = decoded['scores']
+            if self.uncertainty_nms and decoded['box_uncertainties'] is not None:
+                weights = weights * (1. - decoded['box_uncertainties'].mean(-1))
+            keep = batched_box_nms(decoded['boxes'], weights, decoded['valid'], self.nms_thresh)
             decoded['valid'] = decoded['valid'] & keep
         return decoded
 

@@ -5,13 +5,14 @@ from .boxes import (box_area, box_iou, filter_by_box_voting, get_iou_voting, nms
 from .commons import (clip, downsample_labels, equal_size, interpolate_nchw, process_scores,
                       resize_bilinear, resize_nearest)
 from .cpn import (batched_box_nms, filter_contours_by_stitching_rule, fourier_basis,
-                  fouriers2contours, get_scale, order_weighting, rel_location2abs_location,
-                  remove_border_contours, scale_contours, scale_fourier)
+                  fouriers2contours, get_scale, order_weighting, refinement_bucket_weight,
+                  rel_location2abs_location, remove_border_contours, resolve_refinement_buckets,
+                  scale_contours, scale_fourier)
 
 __all__ = ['box_area', 'box_iou', 'nms_padded', 'nms_chunked', 'nms_indices',
            'remove_small_boxes_mask', 'get_iou_voting', 'filter_by_box_voting', 'equal_size',
            'pairwise_box_iou', 'pairwise_generalized_box_iou', 'clip', 'downsample_labels',
-           'order_weighting', 'loss',
+           'order_weighting', 'refinement_bucket_weight', 'resolve_refinement_buckets', 'loss',
            'interpolate_nchw', 'process_scores', 'resize_bilinear', 'resize_nearest',
            'batched_box_nms', 'fourier_basis', 'fouriers2contours', 'get_scale',
            'rel_location2abs_location', 'scale_contours', 'scale_fourier',

@@ -3,7 +3,8 @@
 Counterpart of ``celldetection_tpu/ops/cpn.py``: ``rel_location2abs_location``
 (35-60), ``fourier_basis`` and ``fouriers2contours`` (63-109), ``get_scale``,
 ``scale_contours`` and ``scale_fourier`` (112-136), ``order_weighting``
-(139-146), ``remove_border_contours``
+(139-146), ``refinement_bucket_weight`` and ``resolve_refinement_buckets``
+(149-165), ``remove_border_contours``
 and ``filter_contours_by_stitching_rule`` (167-226), ``batched_box_nms``
 (229-237).
 """
@@ -15,7 +16,8 @@ import torch
 from .boxes import nms_padded
 
 __all__ = ['rel_location2abs_location', 'fourier_basis', 'fouriers2contours', 'get_scale',
-           'scale_contours', 'scale_fourier', 'order_weighting', 'remove_border_contours',
+           'scale_contours', 'scale_fourier', 'order_weighting', 'refinement_bucket_weight',
+           'resolve_refinement_buckets', 'remove_border_contours',
            'filter_contours_by_stitching_rule', 'batched_box_nms']
 
 
@@ -111,6 +113,27 @@ def order_weighting(order: int, max_w: float = 5., min_w: float = 1., spread=Non
         spread = order - 1
     y = min_w + (max_w - min_w) * (1. - torch.clamp(x / spread, 0., 1.)) ** 2
     return y[:, None]
+
+
+def refinement_bucket_weight(index: torch.Tensor, base_index: torch.Tensor) -> torch.Tensor:
+    """Triangle (linear-interpolation) weight of a refinement bucket tap; no gradient."""
+    dist = (index + 0.5 - base_index).abs()
+    return torch.where(dist > 1., 0., 1. - dist).detach()
+
+
+def resolve_refinement_buckets(samplings: torch.Tensor, num_buckets: int):
+    """The three taps ``(bucket index, triangle weight)`` of bucketed
+    refinement for contour parameters ``samplings`` in [0, 1]: the bucket
+    below, at and above ``samplings * num_buckets`` (truncated), wrapped
+    around with ``%``."""
+    base_index = samplings * num_buckets
+    base_int = base_index.to(torch.int32)
+    out = []
+    for delta in (-1, 0, 1):
+        idx = base_int + delta
+        out.append((idx % num_buckets, refinement_bucket_weight(idx.to(samplings.dtype),
+                                                                base_index)))
+    return tuple(out)
 
 
 def remove_border_contours(contours: torch.Tensor, size, padding: float = 1, top: bool = True,

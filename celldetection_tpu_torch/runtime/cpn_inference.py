@@ -1,20 +1,38 @@
-"""Parts of the batch inference pipeline: input preprocessing and the model ensemble.
+"""Batch tiled inference and its command line (``cdt-inference-cpn-torch``).
 
 Counterpart of ``celldetection_tpu/runtime/cpn_inference.py``: ``preprocess``
-(26-47) and ``_ensemble`` (76-107). The CLI itself (``cpn_inference``,
-``main``, ``resolve_model``) needs checkpoint I/O and the h5, label and CSV
-writers, and is not ported yet.
+(26-47), ``resolve_model`` (50-73), ``_ensemble`` (76-107), ``_load_inputs``
+(110-119), ``cpn_inference`` (122-339) and ``main`` (342-404), with the same
+flags and defaults. Each input runs through two functions in turn:
+:func:`infer_input` computes (loads and preprocesses the image, runs the tiled
+inference on the model's device, and builds the label images, the property
+table and the overlay) and :func:`write_outputs` writes the files (h5 with
+``contours``, ``scores``, ``boxes``, ``classes``, ``labels``, ``flat_labels``
+and the ``args`` attribute; ``<name>.csv``; ``<name>_overlay.tiff``).
+Writing needs h5py, and imageio or tifffile for the overlay; reading image
+files needs imageio (or tifffile).
+
+The port runs one process on one device: ``devices`` or ``num_nodes``
+above 1, or an initialised ``torch.distributed`` group of more than one
+process, raise (multi-card inference is ROADMAP.md's Queue A 6), as does
+``demo_figure`` (the visualisation is not ported).
 """
-from typing import Optional
+import argparse
+import glob as glob_mod
+import json
+import os
+import time
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..data.misc import normalize_percentile
 from ..ops.boxes import filter_by_box_voting, nms_padded
-from ..parallel.tiles import KEYS, tta_inference
+from ..parallel.tiles import KEYS, TiledInference, tta_inference
 
-__all__ = ['preprocess']
+__all__ = ['cpn_inference', 'preprocess', 'resolve_model', 'resolve_accelerator',
+           'tiled_models', 'infer_input', 'write_outputs', 'main']
 
 
 def preprocess(img: np.ndarray, percentile: Optional[float] = None, gamma: float = 1.,
@@ -38,6 +56,81 @@ def preprocess(img: np.ndarray, percentile: Optional[float] = None, gamma: float
         if img.shape[-1] == 1:
             img = np.repeat(img, 3, -1)
     return img.astype(np.float32)
+
+
+def resolve_model(model: Union[str, object], model_parameters: Optional[str] = None,
+                  input_shape=None, device=None, **kwargs):
+    """A CPN from an instance, a cdt/``.pt``/``.ckpt`` path or a hosted name.
+
+    Args:
+        model_parameters: Comma-separated ``key=value`` attribute overrides,
+            each typed by the attribute's current value (float where it is
+            None; ``1``/``true`` for a bool), e.g. ``"score_thresh=0.86,samples=128"``.
+        input_shape: Accepted for the JAX package's signature; a port model
+            needs no init template.
+        device: Where a loaded model lives (an instance is moved there);
+            ``cuda`` by default.
+        kwargs: Overrides of the stored hyperparameters of a loaded model.
+    """
+    from ..util.serialization import fetch_model, load_model
+    if isinstance(model, str):
+        load = load_model if os.path.isfile(model) else fetch_model
+        model = load(model, device=device, **kwargs)
+    elif device is not None:
+        model.to(device)
+    if model_parameters:
+        for spec in model_parameters.split(','):
+            k, v = spec.split('=')
+            k = k.strip()
+            if hasattr(model, k):
+                cur = getattr(model, k)
+                typ = type(cur) if cur is not None else float
+                setattr(model, k, typ(v) if typ is not bool else v.lower() in ('1', 'true'))
+    return model
+
+
+def resolve_accelerator(accelerator: Optional[str] = None, devices=None,
+                        num_nodes: int = 1) -> torch.device:
+    """The device of ``accelerator``: the card for None, ``'auto'``, ``'gpu'``
+    and ``'cuda'`` (raises without one), the CPU for ``'cpu'``. More than
+    one device or node raises: the port runs on one."""
+    from ..util.device import resolve_device
+    if devices is not None and int(devices) > 1 or int(num_nodes) > 1:
+        raise NotImplementedError(f'devices={devices}, num_nodes={num_nodes}: the port runs '
+                                  f'on one device in one process (multi-card inference is '
+                                  f'ROADMAP.md, Queue A 6)')
+    if accelerator in (None, 'auto', 'gpu', 'cuda'):
+        return resolve_device('cuda')
+    if accelerator == 'cpu':
+        return resolve_device('cpu')
+    raise ValueError(f"accelerator={accelerator!r}: the port runs on 'gpu'/'cuda' (the "
+                     f"default) or 'cpu'")
+
+
+def tiled_models(model, device, precision: str = '32', score_thresh: Optional[float] = None,
+                 nms_thresh: Optional[float] = None, model_parameters: Optional[str] = None,
+                 model_kwargs: Optional[str] = None, tile_size: int = 1024, stride: int = 768,
+                 batch_size: Optional[int] = None, border_removal: int = 4,
+                 stitching_rule: str = 'nms') -> List[TiledInference]:
+    """The models of :func:`cpn_inference` on ``device``, each in a
+    :class:`..parallel.tiles.TiledInference`: ``model`` (or each of a list
+    or tuple, an ensemble) through :func:`resolve_model` with
+    ``model_parameters`` and the JSON ``model_kwargs``, then ``precision``
+    (``'bf16'`` computes the backbone and heads in bfloat16) and the
+    threshold overrides."""
+    mk = json.loads(model_kwargs) if model_kwargs else {}
+    model_list = model if isinstance(model, (list, tuple)) else [model]
+    model_list = [resolve_model(m, model_parameters, device=device, **mk) for m in model_list]
+    for m in model_list:
+        if precision in ('bf16', 'bfloat16', '16'):
+            m.compute_dtype = torch.bfloat16
+        if score_thresh is not None:
+            m.score_thresh = score_thresh
+        if nms_thresh is not None:
+            m.nms_thresh = nms_thresh
+    return [TiledInference(m, tile_size=tile_size, stride=stride, batch_size=batch_size,
+                           border_removal=border_removal, stitching_rule=stitching_rule)
+            for m in model_list]
 
 
 def _ensemble(tiled_list, img, mask, pmask, min_vote: int, nms_thresh: float, reps: int = 1,
@@ -65,3 +158,307 @@ def _ensemble(tiled_list, img, mask, pmask, min_vote: int, nms_thresh: float, re
     out = {k: v[keep] for k, v in cat.items()}
     out['num_tiles'] = sum(r.get('num_tiles', 0) for r in results)
     return out
+
+
+def _load_inputs(inputs: Union[str, Sequence[str]]) -> List[str]:
+    if isinstance(inputs, str):
+        inputs = [inputs]
+    files = []
+    for i in inputs:
+        if any(c in i for c in '*?['):
+            files += sorted(glob_mod.glob(i))
+        else:
+            files.append(i)
+    return files
+
+
+def infer_input(src, tiled_list: Sequence[TiledInference], mask=None, point_mask=None, *,
+                name: str = None, percentile: Optional[float] = None, gamma: float = 1.,
+                contrast: float = 1., brightness: float = 0., grayscale: bool = False,
+                inputs_method: str = 'imageio', inputs_dataset: str = 'image',
+                masks_dataset: str = 'mask', point_masks_dataset: str = 'point_mask',
+                point_mask_exclusive: bool = False, min_vote: int = 1, reps: int = 1,
+                labels: bool = False, flat_labels: bool = False,
+                properties: Optional[List[str]] = None, spacing=None, separator: str = '-',
+                overlay: bool = False, overlay_processes: Optional[int] = None,
+                overlay_seed: Optional[int] = None) -> dict:
+    """Everything :func:`cpn_inference` computes for one input, nothing written.
+
+    Args:
+        src: An image array, or a file name for :func:`..util.io.load_image`
+            (``file.h5::key``, or ``inputs_dataset`` for a plain ``.h5``).
+        tiled_list: One :class:`..parallel.tiles.TiledInference` per model;
+            more than one is an ensemble (box voting by ``min_vote``, one
+            final NMS).
+        mask, point_mask: Optional arrays or file names, paired with ``src``.
+        overlay_seed: The seed of the overlay's random colours (None, as
+            :func:`cpn_inference` draws them, gives other colours each call).
+        Other arguments as :func:`cpn_inference`'s.
+
+    Returns:
+        ``name``, ``size`` (h, w), ``result`` (the tiled inference's
+        detections), ``labels``, ``flat_labels``, ``table`` (a
+        :class:`..data.misc.PropertyTable`) and ``overlay``, each None unless
+        asked for, and ``seconds`` by stage on the host clock (``load``,
+        ``preprocess``, ``inference``, ``labels``, ``flat_labels``,
+        ``table``, ``overlay``) beside ``stats``, the tiled inference's own
+        (the first model's).
+    """
+    from ..data.cpn import contours2labels, contours2overlay
+    from ..util.io import load_image
+
+    seconds = {}
+    t0 = time.perf_counter()
+    img = load_image(src, method=inputs_method, dataset=inputs_dataset) \
+        if isinstance(src, str) else np.asarray(src)
+    if grayscale and img.ndim == 3 and img.shape[-1] > 1:
+        # the dtype stays: uint8 inputs must keep preprocess's /255 branch
+        img = img.mean(-1).astype(img.dtype)
+    mask = load_image(mask, dataset=masks_dataset) if isinstance(mask, str) else mask
+    point_mask = load_image(point_mask, dataset=point_masks_dataset) \
+        if isinstance(point_mask, str) else point_mask
+    seconds['load'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = tiled_list[0].model
+    to_rgb = model.hparams.get('in_channels', 3) != 1   # gray to RGB for multi-channel models
+    img = preprocess(img, percentile=percentile, gamma=gamma, contrast=contrast,
+                     brightness=brightness, to_rgb=to_rgb)
+    seconds['preprocess'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    kw = dict(mask=mask, point_mask=point_mask, point_mask_exclusive=point_mask_exclusive)
+    if len(tiled_list) > 1:
+        res = _ensemble(tiled_list, img, mask, point_mask, min_vote, model.nms_thresh, reps=reps,
+                        point_mask_exclusive=point_mask_exclusive)
+    elif reps > 1:
+        res = tta_inference(tiled_list[0], img, reps=reps, **kw)
+    else:
+        res = tiled_list[0](img, **kw)
+    seconds['inference'] = time.perf_counter() - t0
+    h, w = img.shape[:2]
+    out = dict(name=name, size=(h, w), result=res, labels=None, flat_labels=None, table=None,
+               overlay=None, seconds=seconds, stats=dict(tiled_list[0].stats))
+
+    contours = list(res['contours'])
+    if labels:
+        t0 = time.perf_counter()
+        out['labels'] = contours2labels(contours, (h, w))
+        seconds['labels'] = time.perf_counter() - t0
+    if flat_labels or properties:
+        from ..native import contours2labels_native
+        t0 = time.perf_counter()
+        flat = contours2labels_native(contours, (h, w))
+        seconds['flat_labels'] = time.perf_counter() - t0
+        if flat_labels:
+            out['flat_labels'] = flat
+        if properties:
+            from ..data.misc import labels2property_table
+            t0 = time.perf_counter()
+            out['table'] = labels2property_table(flat, *properties, spacing=spacing,
+                                                 separator=separator)
+            seconds['table'] = time.perf_counter() - t0
+    if overlay:
+        t0 = time.perf_counter()
+        out['overlay'] = contours2overlay(res['contours'], (h, w), seed=overlay_seed,
+                                          processes=overlay_processes)
+        seconds['overlay'] = time.perf_counter() - t0
+    return out
+
+
+def write_outputs(outputs: str, computed: dict, args: dict):
+    """Write what :func:`infer_input` computed for one input into the
+    directory ``outputs``: ``<name>.h5`` (detections, label images, the
+    ``args`` attribute as JSON), ``<name>.csv`` and ``<name>_overlay.tiff``."""
+    from ..util.io import to_h5, to_tiff
+    name, res = computed['name'], computed['result']
+    out_fn = os.path.join(outputs, f'{name}.h5')
+    to_h5(out_fn, contours=res['contours'], scores=res['scores'], boxes=res['boxes'],
+          classes=res['classes'], attributes={'args': json.dumps(args)})
+    for key in ('labels', 'flat_labels'):
+        if computed[key] is not None:
+            to_h5(out_fn, mode='a', **{key: computed[key]})
+    if computed['table'] is not None:
+        computed['table'].to_csv(os.path.join(outputs, f'{name}.csv'))
+    if computed['overlay'] is not None:
+        to_tiff(os.path.join(outputs, f'{name}_overlay.tiff'), computed['overlay'])
+
+
+def cpn_inference(
+        inputs, model, outputs: str = 'outputs', masks=None, point_masks=None,
+        tile_size: int = 1024, stride: int = 768,
+        batch_size: Optional[int] = None, precision: str = '32', border_removal: int = 4,
+        stitching_rule: str = 'nms', min_vote: int = 1, score_thresh: Optional[float] = None,
+        nms_thresh: Optional[float] = None, percentile: Optional[float] = None,
+        gamma: float = 1., contrast: float = 1., brightness: float = 0.,
+        group_level: str = 'rank', model_parameters: Optional[str] = None,
+        labels: bool = False, flat_labels: bool = False, properties: Optional[List[str]] = None,
+        overlay: bool = False, overlay_processes: int = None,
+        demo_figure: bool = False, continue_on_exception: bool = False,
+        reps: int = 1,
+        accelerator: Optional[str] = None, devices=None, num_nodes: int = 1,
+        grayscale: bool = False, inputs_method: str = 'imageio', separator: str = '-',
+        inputs_dataset: str = 'image', masks_dataset: str = 'mask',
+        point_masks_dataset: str = 'point_mask', point_mask_exclusive: bool = False,
+        skip_existing: bool = False, truncated_images: bool = False,
+        model_kwargs: Optional[str] = None, spacing=None,
+):
+    """Run tiled CPN inference on large input images and write the results.
+
+    Args (those of the JAX package's CLI):
+        inputs: File name(s), glob pattern(s), or arrays.
+        model: Model name, path or instance (see :func:`resolve_model`); a
+            list or tuple of them is an ensemble.
+        outputs: Output directory (an h5 per input, and optional files).
+        tile_size / stride: The sliding window (1024 / 768).
+        precision: ``'32'`` or ``'bf16'`` (the backbone's and heads' dtype).
+        border_removal: Interior tile-border margin in px.
+        stitching_rule: ``'nms'`` and/or ``'ex_br'`` (comma-separated).
+        score_thresh / nms_thresh: Optional model overrides.
+        group_level: ``'rank'``, ``'node'`` or ``'job'``; with one process
+            every input is this process's.
+        labels / flat_labels: Also write the channelled and the flat label image.
+        properties: Region properties to write as CSV (``separator`` joins
+            the columns of a vector property, as ``bbox-0``; ``spacing``
+            gives physical units).
+        overlay: Write an RGBA overlay TIFF (``overlay_processes`` workers).
+        reps: Test-time augmentation over flips (1-4).
+        accelerator: None, ``'auto'``, ``'gpu'`` or ``'cuda'`` (the card) or
+            ``'cpu'`` (:func:`resolve_accelerator`).
+        grayscale: Average multi-channel inputs (the dtype stays).
+        inputs_dataset / masks_dataset / point_masks_dataset: The h5 keys of
+            ``.h5`` inputs named without ``::key``.
+        point_mask_exclusive: Detect only at marked points.
+        skip_existing: Skip inputs whose h5 exists.
+        continue_on_exception: Print an input's error and go on.
+        model_kwargs: JSON of overrides for loading the model(s).
+
+    Returns:
+        The list of per-input results (the tiled inference's detections).
+    """
+    from ..parallel.mesh import get_num_nodes, shard_inputs_by_process
+
+    if demo_figure:
+        raise NotImplementedError('demo_figure: the visualisation is not ported')
+    device = resolve_accelerator(accelerator, devices, num_nodes)
+    if get_num_nodes() > 1:
+        raise NotImplementedError(f'{get_num_nodes()} processes: the port runs inputs in one '
+                                  f'process (multi-card inference is ROADMAP.md, Queue A 6)')
+    os.makedirs(outputs, exist_ok=True)
+    if truncated_images:
+        try:
+            from PIL import ImageFile
+        except ImportError as e:
+            raise ImportError('truncated_images needs the package PIL') from e
+        ImageFile.LOAD_TRUNCATED_IMAGES = True
+
+    tiled_list = tiled_models(model, device, precision, score_thresh, nms_thresh,
+                              model_parameters, model_kwargs, tile_size, stride, batch_size,
+                              border_removal, stitching_rule)
+
+    if isinstance(inputs, np.ndarray):
+        file_list = [inputs]
+    elif isinstance(inputs, (list, tuple)) and len(inputs) and isinstance(inputs[0], np.ndarray):
+        file_list = list(inputs)
+    else:
+        file_list = _load_inputs(inputs)
+    mask_list = _load_inputs(masks) if masks else None
+    point_list = _load_inputs(point_masks) if point_masks else None
+    file_list = shard_inputs_by_process(list(enumerate(file_list)), group_level)
+    args = dict(tile_size=tile_size, stride=stride, border_removal=border_removal,
+                stitching_rule=stitching_rule, precision=precision)
+
+    results = []
+    for src_idx, src in file_list:
+        name = (os.path.splitext(os.path.basename(src))[0]
+                if isinstance(src, str) else f'array{src_idx}')
+        try:
+            if skip_existing and os.path.isfile(os.path.join(outputs, f'{name}.h5')):
+                continue
+            computed = infer_input(
+                src, tiled_list, mask_list[src_idx] if mask_list else None,
+                point_list[src_idx] if point_list else None, name=name, percentile=percentile,
+                gamma=gamma, contrast=contrast, brightness=brightness, grayscale=grayscale,
+                inputs_method=inputs_method, inputs_dataset=inputs_dataset,
+                masks_dataset=masks_dataset, point_masks_dataset=point_masks_dataset,
+                point_mask_exclusive=point_mask_exclusive, min_vote=min_vote, reps=reps,
+                labels=labels, flat_labels=flat_labels, properties=properties, spacing=spacing,
+                separator=separator, overlay=overlay, overlay_processes=overlay_processes)
+            write_outputs(outputs, computed, args)
+            results.append(computed['result'])
+        except Exception as e:
+            if continue_on_exception:
+                print(f'cpn_inference: skipping {name}: {type(e).__name__}: {e}')
+                continue
+            raise
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    p = argparse.ArgumentParser('cdt-inference-cpn-torch',
+                                description='Tiled CPN inference on a CUDA card or the CPU '
+                                            '(celldetection_tpu_torch)')
+    p.add_argument('-i', '--inputs', nargs='+', required=True,
+                   help='Input files or glob patterns')
+    p.add_argument('-m', '--model', nargs='+', required=True,
+                   help='Model name(s)/checkpoint path(s); multiple -> ensemble with box voting')
+    p.add_argument('-o', '--outputs', default='outputs', help='Output directory')
+    p.add_argument('--masks', nargs='*', default=None,
+                   help='Optional fg masks (paired with inputs); suppress detections outside')
+    p.add_argument('--point_masks', nargs='*', default=None,
+                   help='Optional point-prompt masks (paired with inputs)')
+    p.add_argument('--tile_size', type=int, default=1024)
+    p.add_argument('--stride', type=int, default=768)
+    p.add_argument('--batch_size', type=int, default=None)
+    p.add_argument('--precision', default='32', choices=['32', 'bf16'])
+    p.add_argument('--border_removal', type=int, default=4)
+    p.add_argument('--stitching_rule', default='nms')
+    p.add_argument('--score_thresh', type=float, default=None)
+    p.add_argument('--nms_thresh', type=float, default=None)
+    p.add_argument('--percentile', type=float, default=None)
+    p.add_argument('--gamma', type=float, default=1.)
+    p.add_argument('--contrast', type=float, default=1.)
+    p.add_argument('--brightness', type=float, default=0.)
+    p.add_argument('--group_level', default='rank', choices=['job', 'rank', 'node'])
+    p.add_argument('--model_parameters', default=None,
+                   help='Comma-separated key=value model attribute overrides')
+    p.add_argument('--labels', action='store_true')
+    p.add_argument('--flat_labels', action='store_true')
+    p.add_argument('-p', '--properties', nargs='*', default=None)
+    p.add_argument('--overlay', action='store_true')
+    p.add_argument('--overlay_processes', type=int, default=None,
+                   help='Parallel overlay rendering processes (gigapixel outputs)')
+    p.add_argument('--demo_figure', action='store_true')
+    p.add_argument('--continue_on_exception', action='store_true')
+    p.add_argument('--reps', type=int, default=1,
+                   help='Test-time augmentation over flips (1-4)')
+    p.add_argument('--accelerator', default=None,
+                   help="'gpu'/'cuda' (the default) or 'cpu'")
+    p.add_argument('--devices', type=int, default=None)
+    p.add_argument('--num_nodes', type=int, default=1)
+    p.add_argument('--min_vote', type=int, default=1,
+                   help='Ensemble box voting: min models that must agree')
+    p.add_argument('--grayscale', action='store_true',
+                   help='Convert multi-channel inputs to grayscale')
+    p.add_argument('--inputs_method', default='imageio', choices=['imageio', 'tifffile'])
+    p.add_argument('--separator', default='-',
+                   help='Column separator for multi-valued region properties in CSVs')
+    p.add_argument('--inputs_dataset', default='image', help='Default h5 key for inputs')
+    p.add_argument('--masks_dataset', default='mask', help='Default h5 key for masks')
+    p.add_argument('--point_masks_dataset', default='point_mask',
+                   help='Default h5 key for point masks')
+    p.add_argument('--point_mask_exclusive', action='store_true',
+                   help='Only detect at point-marked pixels')
+    p.add_argument('--skip_existing', action='store_true',
+                   help='Skip inputs whose output h5 already exists')
+    p.add_argument('--truncated_images', action='store_true',
+                   help='Tolerate truncated image files (PIL)')
+    p.add_argument('--model_kwargs', default=None,
+                   help='JSON kwargs for model construction')
+    p.add_argument('--spacing', type=float, nargs='+', default=None,
+                   help='Physical pixel spacing for property export')
+    cpn_inference(**vars(p.parse_args(argv)))
+
+
+if __name__ == '__main__':
+    main()

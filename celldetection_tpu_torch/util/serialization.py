@@ -33,15 +33,18 @@ hosted_models = {
 }
 
 # run-time settings that a file records at their current values
-_RUNTIME_ATTRS = ('score_thresh', 'nms_thresh', 'samples', 'order', 'max_detections',
-                  'refinement_iterations')
+_RUNTIME_ATTRS = ('score_thresh', 'nms_thresh', 'samples', 'order', 'certainty_thresh',
+                  'max_detections', 'refinement_iterations')
 
 
 def model2dict(model) -> dict:
     """CPN → ``{'cdt.models', 'params_bytes', 'cdt.__version__'}``.
 
     The run-time settings (thresholds, samples, capacity) are recorded at
-    their current values, as the reference's ``updated_kwargs`` does.
+    their current values, as the reference's ``updated_kwargs`` does. The
+    head options that differ from their defaults (``uncertainty_nms`` and
+    the ``*_features``) are in ``model.hparams``, which the JAX package's
+    files leave out.
     """
     from .. import __version__
     hparams = dict(model.hparams)

@@ -3,8 +3,9 @@
 ``state_dict_from_jax`` is the port's own copy of
 ``celldetection_tpu/util/torch_import.py:export_torch_state_dict`` (lines
 280-400) for the encoders it covers: the U-Net encoder and the ResNet body
-(348-398), the U-Net decoder with its bias-free bridges, and the FPN
-(348-356), under the reference torch layout; ``ResBlock`` takes
+(348-398), the U-Net decoder with its bias-free bridges, the FPN
+(348-356), the heads and the ``*_fuse`` modules (308-328), under the
+reference torch layout; ``ResBlock`` takes
 ``TwoConvNormRelu``'s indices and ``downsample.{0,1}``. The JAX package
 defines no torch layout for the later families (the ConvNeXt, DenseNet and
 MobileNetV3 bodies, ``Ppm`` as ``body.ppm``, the MaNet ``decoder``): their
@@ -91,7 +92,12 @@ def _port_key(coll: str, path: Tuple[str, ...], fused_initial: bool = False) -> 
     """(collection, flax path) → the port's state-dict key."""
     p = list(path)
     conv_leaf = 'weight' if p[-1] == 'kernel' else 'bias'
-    if p[0].endswith('_head'):
+    if p[0].endswith('_fuse'):     # Fuse: conv 0, norm 1 (the reference's Fuse2d)
+        if p[1] == 'conv':
+            return f'core.{p[0]}.block.0.{conv_leaf}'
+        if p[1] == 'norm':
+            return f'core.{p[0]}.block.1.{_NORM_LEAVES[(coll, p[-1])]}'
+    elif p[0].endswith('_head'):
         if p[1] in ('conv0', 'conv1'):
             return f'core.{p[0]}.block.{0 if p[1] == "conv0" else 4}.{conv_leaf}'
         if p[1] == 'norm':
@@ -173,6 +179,10 @@ def _jax_path(key: str, encoder: str = 'unet',
         if idx == '1':
             return norm((head, 'norm'), leaf)
         return conv((head, 'conv0' if idx == '0' else 'conv1'), leaf)
+    m = re.fullmatch(r'core\.(\w+_fuse)\.block\.([01])\.(\w+)', key)
+    if m:
+        fuse, idx, leaf = m.groups()
+        return conv((fuse, 'conv'), leaf) if idx == '0' else norm((fuse, 'norm'), leaf)
     m = re.fullmatch(r'core\.backbone\.unet\.inner_blocks\.(\d+)\.(weight|bias)', key)
     if m:
         return conv(('backbone', 'unet', f'inner{int(m.group(1)) + 1}'), m.group(2))

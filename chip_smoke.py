@@ -110,6 +110,7 @@ import torch
 
 import celldetection_tpu_torch as ct
 from celldetection_tpu_torch import kernels, models
+from celldetection_tpu_torch.kernels import nms as knms
 from celldetection_tpu_torch.kernels import nms_bits_count, nms_bits_fill, nms_resolve
 from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, large_layout,
                                                  nms_sweep, resolve_library, slots_layout)
@@ -121,6 +122,7 @@ from celldetection_tpu_torch.data import collate_cpn_targets, contours2labels, c
 from celldetection_tpu_torch.native import contours2labels_native, rasterize_library
 from celldetection_tpu_torch.parallel.tiles import TiledInference, tile_image
 from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
+from celldetection_tpu_torch.runtime.cpn_inference import infer_input, preprocess, tiled_models
 from celldetection_tpu_torch.runtime.trainer import CPNTrainer
 from celldetection_tpu_torch.util.config import conf2optimizer
 from celldetection_tpu_torch.util.serialization import load_model, load_model_meta, save_model
@@ -617,6 +619,19 @@ def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 20
         print(f'  dense {key} {tuple(v.shape)}: max |card - cpu| = {err:.3e} (atol {tol:.3e})',
               flush=True)
         check(err <= tol, f'dense {key} differs: {err} > {tol}')
+    if 'uncertainty' in dg:
+        # the certainty cut in a wide gap of the CPU's mean uncertainties (a
+        # fifth to four fifths of the pixels kept), so no pixel lies within
+        # the card-CPU difference of it
+        u_cpu = dc['uncertainty'].mean(-1)
+        u_err = float((dg['uncertainty'].mean(-1) - u_cpu).abs().max())
+        cut, u_gap = threshold_in_gap(-u_cpu.numpy(), u_cpu.numel() // 5, 4 * u_cpu.numel() // 5)
+        check(u_gap > 4 * u_err, f'uncertainty gap {u_gap} too narrow for the card-cpu '
+                                 f'difference {u_err}')
+        for m in (cpu_m, gpu_m):
+            m.certainty_thresh = 1 + cut          # keeps mean uncertainty below -cut
+        print(f'  certainty_thresh {1 + cut:.6f} (gap {u_gap:.2e}, mean uncertainty diff '
+              f'{u_err:.2e})', flush=True)
     if gpu_m.score_channels > 2:
         # classes are the argmax of the logits, and no threshold can be placed
         # in a gap: a pixel whose two largest logits lie within 4x the
@@ -694,6 +709,8 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
         # (with more than two classes the classes are the argmax and the
         # threshold plays no part)
         probs = torch.sigmoid(m.forward_padded(x, nms=False)['dense_scores'].float())
+        if m.uncertainty_head:
+            probs = probs * certain_half(m, x).view_as(probs)
         configs.append((name, m, x, threshold_above(probs, 3072)))
 
     for k in kernels.KERNELS:          # the main path's run: counts from 0
@@ -744,7 +761,7 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
 
         # the NMS kernels on this run's own inputs, against their plain versions
         t = m.nms_thresh
-        _, b, v = sort_by_score(pre['boxes'], pre['scores'], pre['valid'])
+        _, b, v = sort_by_score(pre['boxes'], nms_weights(m, pre), pre['valid'])
         k, _, slots, _ = hold_each(b, v, t, errs)
         check(torch.equal(k, _nms_sweep(b, v, t)), f'{name}: the sweep and plain differ')
         print(f'  [{card}] {name} batch {batch}: {batch / dt:.3f} tiles/s '
@@ -775,6 +792,32 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
                       f'{kernel_rec[name_k]["plain_ms"]:.3f} ms, bound '
                       f'{bounds[name_k][0]:.6f} ms ({bounds[name_k][1]})', flush=True)
     return launches, kernel_rec
+
+
+def nms_weights(model, out):
+    """What the model's NMS ranks by: the scores, or with ``uncertainty_nms``
+    the scores times one less the mean box uncertainty."""
+    if model.uncertainty_nms and out['box_uncertainties'] is not None:
+        return out['scores'] * (1. - out['box_uncertainties'].mean(-1))
+    return out['scores']
+
+
+def certain_half(model, x):
+    """Sets the model's ``certainty_thresh`` so that it keeps the more
+    certain half of the score map's pixels of ``x`` (the median of each
+    run's mean uncertainties), and returns that mask ``[B, h * w]`` in the
+    score map's raster order. A forward with threshold 0 and K the map's
+    pixel count selects every pixel, so its ``box_uncertainties`` are the
+    whole map's."""
+    model.certainty_thresh = None
+    probe = model.forward_padded(x, nms=False)
+    hw = probe['dense_scores'][0, ..., 0].numel()
+    full = model.forward_padded(x, score_thresh=0., nms=False, max_detections=hw)
+    u = torch.zeros(x.shape[0], hw, device=x.device)
+    u.scatter_(1, full['fg_index'], full['box_uncertainties'].mean(-1))
+    median = float(u.median())
+    model.certainty_thresh = 1. - median
+    return u < median
 
 
 def blob_mosaic(side, block=TILE, num=160, seed=SEED):
@@ -1568,6 +1611,310 @@ def phase_zoo(rng, card, errs, floor):
     return launches
 
 
+CLI_SIDE = 4096      # phase 16's mosaic: 25 tiles of 1024^2 at stride 768
+CLI_PROPERTIES = ['label', 'area', 'centroid', 'bbox']
+
+
+class SweepRecorder:
+    """Keeps every call of the NMS sweep (``kernels.nms.nms_sweep``, which
+    ``nms_padded`` and ``nms_chunked`` look up at each call) made inside the
+    ``with`` block: its label, inputs, threshold and keep mask, to hold
+    against the plain versions afterwards. The kernels' launch counts are
+    their own wrappers' and stay as they are."""
+
+    def __init__(self):
+        self.calls, self.label = [], None
+
+    def __enter__(self):
+        self.sweep = knms.nms_sweep
+
+        def recording(b, v, thresh):
+            keep = self.sweep(b, v, thresh)
+            order = sum(c[0][0] == self.label for c in self.calls)
+            self.calls.append(((self.label, order), b.clone(), v.clone(), thresh, keep.clone()))
+            return keep
+        knms.nms_sweep = recording
+        return self
+
+    def __exit__(self, *exc):
+        knms.nms_sweep = self.sweep
+
+
+def hold_recorded(calls, errs, card, floor, names, timed=()):
+    """Each recorded sweep call against its plain versions, bit for bit (each
+    kernel, the whole sweep and the recorded keep mask); ``names`` maps a
+    call's (label, order in its run) to what it is, and the calls in
+    ``timed`` are timed beside their bound and the plain sweep."""
+    for key, b, v, t, keep in calls:
+        k, _, slots, _ = hold_each(b, v, t, errs)
+        label = f'{key[0]} {names[key]}'
+        check(torch.equal(k, keep) and torch.equal(k, _nms_sweep(b, v, t)),
+              f'{label}: the NMS call and its plain version differ')
+        shape = f'{v.shape[0]} x {v.shape[1]}'
+        print(f'  NMS call of {label}: {shape}, {int(v.sum())} valid, {int(keep.sum())} kept '
+              f'({"slots" if slots else "packed"} layout): every kernel == plain, keep mask == '
+              f'plain _nms_sweep', flush=True)
+        if key in timed:
+            ms, _ = time_sweep(f'B={v.shape[0]} N={v.shape[1]} t={t} ({label})', b, v, keep, t,
+                               card, floor)
+            plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 2, warmup=1)
+            print(f'  [{card}] plain _nms_sweep {shape} ({label}): {plain_ms:.3f} ms; nms_sweep '
+                  f'{ms:.4f} ms', flush=True)
+
+
+def spread_thresholds(tiled, tiles):
+    """Per model, the score threshold that leaves at most 2000 foreground
+    pixels in every tile of ``tiles`` (numpy NHWC), as phase 7 sets it."""
+    out = {}
+    for name, t in tiled.items():
+        highest = []
+        for i in range(0, len(tiles), 4):
+            x = torch.from_numpy(tiles[i:i + 4]).cuda()
+            p = torch.sigmoid(t.model.forward_padded(x, nms=False)['dense_scores'].float())
+            highest.append(torch.topk(p.flatten(1), 2001, dim=1).values[:, -1])
+        out[name] = float(torch.cat(highest).max())
+    return out
+
+
+def cli_line(card, label, computed, seconds, peak):
+    res, sec, stats = computed['result'], computed['seconds'], computed['stats']
+    host = ', '.join(f'{k} {1e3 * v:.1f} ms' for k, v in sec.items())
+    print(f'  [{card}] {label}: {res["num_tiles"]} tiles in {seconds:.3f} s = '
+          f'{res["num_tiles"] / seconds:.3f} tiles/s through infer_input (host clock); by stage: '
+          f'{host}; TiledInference of the first model: forwards {stats["forward_ms"]:.1f} ms, '
+          f'retries {stats["retry_ms"]:.1f} ms, stitch {stats["stitch_ms"]:.1f} ms, readback '
+          f'{stats["readback_ms"]:.1f} ms; {len(res["boxes"])} detections; peak memory '
+          f'{peak:.2f} GiB', flush=True)
+
+
+def phase_cli(rng, card, errs, floor):
+    """Phase 16: the batch inference CLI's per-input function on the card, a
+    model file loaded by ``resolve_model``, four ways on a 4096^2 uint8 blob
+    mosaic; every NMS call of those runs held against its plain version; then
+    the function on the card against the CPU on a 640^2 mosaic."""
+    print('== phase 16: the batch inference CLI (tiled_models, infer_input) on the card, '
+          'CpnU22 (full width, spread heads) from a cdt file, 4096^2 uint8 blob mosaic, tile '
+          '1024, stride 768', flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mosaic = np.round(blob_mosaic(CLI_SIDE) * 255).astype(np.uint8)
+    stride = 3 * TILE // 4
+    src = models.CpnU22(in_channels=1, max_detections=2048, samples=32, device='cpu')
+    src.load_state_dict(random_weights(src, score=0.25, fourier=0.1), strict=True)  # phase 7's
+    runs = {'a': ('fp32 batch 1, labels, flat labels, properties, overlay', '32', 1,
+                  dict(labels=True, flat_labels=True, properties=CLI_PROPERTIES, overlay=True)),
+            'b': ('bf16 batch 4', 'bf16', 4, {}),
+            'c': ('fp32 batch 1, ensemble of the file twice, min_vote 2', '32', 1,
+                  dict(min_vote=2)),
+            'd': ('fp32 batch 1, reps 2', '32', 1, dict(reps=2))}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'cpnu22.cdt')
+        save_model(path, src)
+        tiled, load_s = {}, {}
+        for key, (_, precision, batch, opts) in runs.items():
+            t0 = time.perf_counter()
+            tiled[key] = tiled_models([path, path] if 'min_vote' in opts else path, 'cuda',
+                                      precision=precision, tile_size=TILE, stride=stride,
+                                      batch_size=batch)
+            torch.cuda.synchronize()
+            load_s[key] = time.perf_counter() - t0
+    img = preprocess(mosaic, to_rgb=False)
+    tiles = tile_image(img, TILE, stride)[0]
+    num_tiles = len(tiles)
+    thresh = spread_thresholds({'32': tiled['a'][0], 'bf16': tiled['b'][0]}, tiles)
+    del tiles
+    print(f'  model file loaded by resolve_model onto the card in '
+          f'{", ".join(f"{k} {v:.2f} s" for k, v in load_s.items())}; thresholds {thresh} (at '
+          f'most 2000 foreground pixels in every tile)', flush=True)
+    for key, (_, precision, _, _) in runs.items():
+        for t in tiled[key]:
+            t.model.score_thresh = thresh[precision]
+        infer_input(mosaic[:2 * TILE, :2 * TILE], tiled[key], reps=runs[key][3].get('reps', 1))
+    torch.cuda.synchronize()
+
+    reset_launches()                   # the CLI's run: counts from 0
+    out = {}
+    with SweepRecorder() as rec:
+        for key, (label, _, _, opts) in runs.items():
+            rec.label = f'16{key}'
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[key] = infer_input(mosaic, tiled[key], name='mosaic', **opts)
+            seconds = time.perf_counter() - t0
+            cli_line(card, f'16{key} {label}', out[key], seconds,
+                     torch.cuda.max_memory_allocated() / 2 ** 30)
+    launches = read_launches()
+    print(f'  kernel launches in the CLI run (launches_cli): {launches}', flush=True)
+    check(all(n > 0 for n in launches.values()), 'a kernel of the CLI path was never launched')
+
+    a = out['a']
+    res = a['result']
+    n = len(res['boxes'])
+    check(res['num_tiles'] == num_tiles and n > 0 and not res['overflow'], '16a: tiles or detections')
+    check(res['contours'].shape == (n, 32, 2) and np.isfinite(res['contours']).all(),
+          '16a: contours')
+    check(a['labels'].shape[:2] == (CLI_SIDE, CLI_SIDE) and 0 < a['labels'].max() <= n, '16a: labels')
+    check(a['flat_labels'].shape == (CLI_SIDE, CLI_SIDE) and 0 < a['flat_labels'].max() <= n,
+          '16a: flat labels')
+    check(a['table'].columns == ['label', 'area', 'centroid-0', 'centroid-1', 'bbox-0',
+                                 'bbox-1', 'bbox-2', 'bbox-3']
+          and len(a['table']) == len(np.unique(a['flat_labels'])) - 1, '16a: the table')
+    check(a['overlay'].shape == (CLI_SIDE, CLI_SIDE, 4) and
+          ((a['overlay'][..., 3] > 0) == (a['labels'] > 0).any(-1)).all(), '16a: the overlay')
+    n_b = len(out['b']['result']['boxes'])
+    check(n_b > 0 and np.isfinite(out['b']['result']['contours']).all(), '16b: detections')
+    # the same model twice: every box has two votes, so the ensemble keeps
+    # what the single model keeps (tests/test_runtime.py's gate)
+    n_c, n_d = len(out['c']['result']['boxes']), len(out['d']['result']['boxes'])
+    print(f'  detections: fp32 {n}, bf16 {n_b}, ensemble {n_c}, reps 2 {n_d}; rows in the table '
+          f'{len(a["table"])}', flush=True)
+    check(abs(n_c - n) <= 1, f'16c: the ensemble keeps {n_c}, the single model {n}')
+    check(out['c']['result']['num_tiles'] == out['d']['result']['num_tiles'] == 2 * num_tiles
+          and n_d > 0,
+          '16c/d: tiles or detections')
+    names = {('16a', 0): 'stitch', ('16b', 0): 'stitch', ('16c', 0): 'stitch, model 1',
+             ('16c', 1): 'stitch, model 2', ('16c', 2): 'final NMS of the ensemble',
+             ('16d', 0): 'stitch', ('16d', 1): 'stitch, flipped',
+             ('16d', 2): 'final NMS of the flips'}
+    check(sorted(c[0] for c in rec.calls) == sorted(names),
+          f'NMS calls {[c[0] for c in rec.calls]}, not {sorted(names)}')
+    hold_recorded(rec.calls, errs, card, floor, names,
+                  timed=(('16a', 0), ('16c', 2), ('16d', 2)))
+    del out, tiled
+    torch.cuda.empty_cache()
+    phase_cli_card_vs_cpu(rng)
+    return launches
+
+
+def rounded_alike(a, b, match):
+    """Per detection of ``a``: do its contour and that of ``b`` it matches
+    round to the same pixels?"""
+    return (np.round(a['contours']) == np.round(b['contours'][match])).all((1, 2))
+
+
+def region_border(labels):
+    """Pixels with a 4-neighbour of another label: where a fill that reads
+    the contours unrounded may go either way."""
+    out = np.zeros(labels.shape, bool)
+    for a, b in ((np.s_[1:], np.s_[:-1]), (np.s_[:-1], np.s_[1:])):
+        out[a, :] |= labels[a, :] != labels[b, :]
+        out[:, a] |= labels[:, a] != labels[:, b]
+    return out
+
+
+def phase_cli_card_vs_cpu(rng):
+    """Phase 16, card against CPU: ``infer_input`` of full-width CpnU22 (phase
+    4's weights, fp32, TF32 off) on a 640^2 uint8 mosaic in 256^2 tiles at
+    stride 192 with every output, as phase 6 runs ``TiledInference``."""
+    print('== phase 16: infer_input on the card against the CPU, CpnU22 (full width, fp32, TF32 '
+          'off), 640^2 uint8 mosaic in 256^2 tiles at stride 192, every output', flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_m = models.CpnU22(in_channels=3, device='cpu')
+    sd = random_weights(cpu_m)
+    cpu_m.load_state_dict(sd, strict=True)
+    gpu_m = models.CpnU22(in_channels=3)
+    gpu_m.load_state_dict(sd, strict=True)
+    image = (rng.rand(640, 640, 3) * 255).astype(np.uint8)
+    tiles = torch.from_numpy(tile_image(preprocess(image), 256, 192)[0])
+    with torch.no_grad():
+        p_cpu = torch.sigmoid(cpu_m.core(tiles)['scores'])
+        p_err = float((torch.sigmoid(gpu_m.core(tiles.cuda())['scores']).cpu() - p_cpu).abs().max())
+    thresh, gap = threshold_in_gap(p_cpu.numpy(), 9 * 300, 9 * 1500)
+    check(gap > 4 * p_err, f'score gap {gap} too narrow for the card-cpu difference {p_err}')
+    opts = dict(labels=True, flat_labels=True, properties=CLI_PROPERTIES, overlay=True,
+                overlay_seed=SEED)
+    got = {}
+    for dev, m in (('cpu', cpu_m), ('cuda', gpu_m)):
+        tl = tiled_models(m, dev, score_thresh=thresh, tile_size=256, stride=192, batch_size=3)
+        t0 = time.perf_counter()
+        got[dev] = infer_input(image, tl, **opts)
+        got[dev]['wall'] = time.perf_counter() - t0
+    c, g = got['cpu'], got['cuda']
+    rc, rg = c['result'], g['result']
+    print(f'  threshold {thresh:.6f} (gap {gap:.2e}, score diff {p_err:.2e}); CPU '
+          f'{c["wall"]:.1f} s, card {g["wall"]:.2f} s; tiles {rc["num_tiles"]} / '
+          f'{rg["num_tiles"]}, kept {rc["num_valid"]} / {rg["num_valid"]} (cpu / card)',
+          flush=True)
+    for key in ('num_tiles', 'num_valid', 'overflow'):
+        check(rc[key] == rg[key], f'infer_input {key} differs: {rc[key]} and {rg[key]}')
+    match = match_detections(rc, rg)
+    check(match is not None, 'the kept detections of the card and the CPU differ')
+    diffs = np.abs(rg['contours'][match] - rc['contours'])
+    frac = float((diffs <= 1e-3).all(-1).mean())
+    check(frac >= 0.99 and float(diffs.mean()) < 0.1, 'contours differ beyond the gates')
+    # the labels and the overlay follow from the contours rounded to pixels
+    # and from their order (label = place + 1, the colours drawn in order):
+    # they must be equal outside the boxes of the detections that round
+    # differently or sit elsewhere in the order. The flat labels' native fill
+    # reads the contours unrounded (as the JAX package's does), so a pixel
+    # centre within rounding of an edge may fall either side: such pixels
+    # must lie on a region's border and be few (1e-3 of the foreground), and
+    # the table rows of their regions are left out.
+    n = len(match)
+    alike = rounded_alike(rc, rg, match)
+    moved = match != np.arange(n)
+    odd = np.nonzero(~alike | moved)[0]
+    mask = np.zeros((640, 640), bool)
+    for j in odd:
+        for con in (rc['contours'][j], rg['contours'][match[j]]):
+            x0, y0 = np.maximum(np.floor(con.min(0)).astype(int) - 4, 0)
+            x1, y1 = np.ceil(con.max(0)).astype(int) + 5
+            mask[y0:y1, x0:x1] = True
+    lut = np.zeros(n + 1, np.int64)
+    lut[match + 1] = np.arange(1, n + 1)           # card label -> the CPU's label
+    flat_g = lut[g['flat_labels']]
+    edge = (flat_g != c['flat_labels']) & ~mask
+    fg = int((c['flat_labels'] > 0).sum())
+    check(edge.sum() <= 1e-3 * fg and not (edge & ~(region_border(flat_g) |
+                                                    region_border(c['flat_labels']))).any(),
+          f'flat labels differ on {int(edge.sum())} of {fg} pixels where contours agree, or '
+          f'off the border of a region')
+    lab_g, lab_c = lut[g['labels']].max(-1), c['labels'].max(-1)
+    check((lab_g == lab_c)[~mask].all(), 'labels differ where contours agree')
+    check((g['overlay'] == c['overlay'])[~mask].all(), 'overlays differ where contours agree')
+    # table rows of the regions that no such box touches
+    rows_c = {r['label']: r for r in c['table'].rows}
+    rows_g = {int(lut[r['label']]): r for r in g['table'].rows}
+    touched = set(np.unique(c['flat_labels'][mask | edge])) | set(np.unique(flat_g[mask | edge]))
+    same = [lbl for lbl in rows_c if lbl not in touched]
+    check(c['table'].columns == g['table'].columns and all(
+        lbl in rows_g and {k: v for k, v in rows_g[lbl].items() if k != 'label'} ==
+        {k: v for k, v in rows_c[lbl].items() if k != 'label'} for lbl in same),
+        'table rows differ where contours agree')
+    if not len(odd):
+        check(np.array_equal(g['labels'], c['labels']) and
+              np.array_equal(g['overlay'], c['overlay']), 'outputs differ')
+    print(f'  same keep set; contours: {100 * frac:.2f}% of points within 1e-3 px, mean |diff| '
+          f'{float(diffs.mean()):.2e} px; {n - len(odd)} of {n} detections round to the same '
+          f'pixels in the same place ({int(moved.sum())} elsewhere in the order): labels and '
+          f'the overlay equal outside {100 * mask.mean():.2f}% of the image around the others, '
+          f'flat labels there but for {int(edge.sum())} of {fg} foreground pixels at an edge, '
+          f'{len(same)} of {len(rows_c)} table rows equal', flush=True)
+
+
+# phase 17: every head option of the JAX package's CPN at once (the
+# certainty threshold is set by each phase from the model's own uncertainties)
+HEADS = dict(uncertainty_head=True, uncertainty_nms=True, refinement_buckets=3,
+             contour_features=('1', '2'), refinement_features=('0', '1'))
+
+
+def phase_heads(rng, card, errs, floor):
+    """Phase 17: CpnU22 with the head options, card against CPU at 256^2 (the
+    certainty cut in a gap of the mean uncertainties), then its main path on
+    1024^2 tiles with the uncertainty-weighted NMS calls held against their
+    plain versions. Returns the NMS kernels' launches of the main path."""
+    phase_card_vs_cpu(rng, 'phase 17: CpnU22 with the uncertainty head and NMS, refinement '
+                      'buckets 3, fused levels (full width)',
+                      lambda **kw: models.CpnU22(in_channels=3, **HEADS, **kw))
+    launches, _ = main_path(rng, card, errs, floor, 'phase 17: main path, CpnU22 with the head '
+                            'options (full width)',
+                            lambda **kw: models.CpnU22(in_channels=3, max_detections=2048,
+                                                       samples=32, **HEADS, **kw))
+    print(f'  kernel launches in phase 17 (launches_heads): {launches}', flush=True)
+    return launches
+
+
 def score_gap(a, b):
     """The largest score difference of detections the two sides share
     (by the nearest box), for the report of a count difference."""
@@ -1634,8 +1981,10 @@ def main():
         phase_checkpoints(rng, card, trainer, fixed, ckpt)
         launches_validate = phase_validate(card, fixed, ckpt, errs, floor)
     launches_zoo = phase_zoo(rng, card, errs, floor)
-    imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py'} & \
-        set(sys.modules)
+    launches_cli = phase_cli(rng, card, errs, floor)
+    launches_heads = phase_heads(rng, card, errs, floor)
+    imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py',
+                'pandas', 'imageio', 'tifffile', 'PIL'} & set(sys.modules)
     check(not imported, f'{sorted(imported)} imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
@@ -1644,6 +1993,7 @@ def main():
         'launches': launches[name], 'launches_tiled': launches_tiled[name],
         'launches_resnet': launches_resnet[name], 'launches_train': launches_train[name],
         'launches_validate': launches_validate[name], 'launches_zoo': launches_zoo[name],
+        'launches_cli': launches_cli[name], 'launches_heads': launches_heads[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

@@ -27,6 +27,7 @@ setup(
     entry_points={
         'console_scripts': [
             'cdt-inference-cpn=celldetection_tpu.runtime.cpn_inference:main',
+            'cdt-inference-cpn-torch=celldetection_tpu_torch.runtime.cpn_inference:main',
         ]
     },
 )

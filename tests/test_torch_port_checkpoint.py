@@ -52,6 +52,9 @@ from celldetection_tpu_torch.util import torch_import as timport
 from celldetection_tpu_torch.util.weights import (init_jax_variables,
                                                   jax_variables_from_state_dict,
                                                   state_dict_from_jax)
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 FIXTURE = os.path.join(os.path.dirname(__file__), 'fixtures', 'cpnu12_trained.cdt')
 BASE, SIZE, SAMPLES = 8, 64, 16
@@ -342,12 +345,15 @@ def test_port_save_model_loads_in_jax(tmp_path, name, fused):
 
 
 def test_dict2model_refuses_unported_options():
-    d = {'cdt.models': {'model': 'CpnU12', 'kwargs': dict(in_channels=1, uncertainty_head=True,
-                                                          **NARROW)}}
-    with pytest.raises(NotImplementedError, match='uncertainty_head'):
+    # the JAX CPN's parameter dtype is not ported; the head options are
+    d = {'cdt.models': {'model': 'CpnU12', 'kwargs': dict(in_channels=1, dtype='float64',
+                                                          uncertainty_head=True, **NARROW)}}
+    with pytest.raises(NotImplementedError, match='dtype'):
         tser.dict2model(d, device='cpu')
-    d['cdt.models']['kwargs'].update(uncertainty_head=False, certainty_thresh=None)
-    assert tser.dict2model(d, device='cpu').samples == 32
+    d['cdt.models']['kwargs'].update(dtype=None, certainty_thresh=0.4)
+    model = tser.dict2model(d, device='cpu')
+    assert model.samples == 32 and model.certainty_thresh == 0.4
+    assert model.core.uncertainty_head is not None
 
 
 # --- reference .pt and Lightning .ckpt files ------------------------------------------------

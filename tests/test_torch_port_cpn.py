@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import flax
 import msgpack
 import numpy as np
+import pytest
 import torch
 from flax import serialization
 
@@ -38,7 +39,20 @@ from celldetection_tpu_torch import models as tmodels
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
 from celldetection_tpu_torch.util.weights import body_layout
 
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
+
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'fixtures')
+
+
+@pytest.fixture(scope='module')
+def one_torch_thread():
+    """The port's CPU path in one torch thread, for a test module that asks
+    for it: its many small ops wait on the pool's other threads when several
+    test processes share the cores, and run many times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _numpy_tree(tree):
@@ -132,7 +146,7 @@ def _slice_parity(name, backbone_kwargs, size, batch, capacity, seed, classes=2,
     dense_j = {k: np.asarray(v) for k, v in dense_j.items() if v is not None}
     with torch.no_grad():
         dense_p = pm.core(torch.from_numpy(x))
-    assert dense_p['uncertainty'] is None
+    assert (dense_p['uncertainty'] is None) == ('uncertainty' not in dense_j)
     for key, ref in dense_j.items():   # 1e-4 of the map's peak, and at least 1e-4
         atol = 1e-4 * max(1., float(np.abs(ref).max()))
         np.testing.assert_allclose(dense_p[key].numpy(), ref, rtol=0, atol=atol, err_msg=key)

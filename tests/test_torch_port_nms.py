@@ -20,6 +20,9 @@ from celldetection_tpu.ops.boxes import nms_padded as jax_nms_padded
 from celldetection_tpu_torch.kernels import KERNELS, nms_sweep
 from celldetection_tpu_torch.ops import batched_box_nms, nms_padded
 from celldetection_tpu_torch.ops.boxes import _nms_sweep, sort_by_score
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 
 def crowded_boxes(seed, shape, extent=200., invalid=0.05):

@@ -33,6 +33,9 @@ from celldetection_tpu_torch.util import pretrained as tpre
 from celldetection_tpu_torch.util import state_dict_from_jax
 from celldetection_tpu_torch.util.weights import body_layout
 from test_pretrained import _torchvision_layout_from_tree
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 LEAF = {('params', 'scale'): 'weight', ('params', 'bias'): 'bias',
         ('batch_stats', 'mean'): 'running_mean', ('batch_stats', 'var'): 'running_var'}

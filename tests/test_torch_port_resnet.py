@@ -26,6 +26,9 @@ from celldetection_tpu.util.torch_import import export_torch_state_dict
 from celldetection_tpu_torch import models as tmodels
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
 from test_torch_port_cpn import _numpy_tree, _slice_parity
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 RESNETS = ('ResNet18', 'ResNet34', 'ResNet50', 'ResNet101', 'ResNet152', 'ResNeXt50',
            'ResNeXt101', 'ResNeXt152', 'WideResNet50', 'WideResNet101')

@@ -33,6 +33,9 @@ from celldetection_tpu_torch.ops import cpn as tcpn
 from celldetection_tpu_torch.parallel import tiles as ttiles
 from celldetection_tpu_torch.runtime import preprocess
 from celldetection_tpu_torch.util import tiling as ttiling
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 KEYS = ('contours', 'boxes', 'scores', 'classes', 'locations', 'fourier')
 

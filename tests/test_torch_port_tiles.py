@@ -26,6 +26,9 @@ from celldetection_tpu_torch import models as tmodels
 from celldetection_tpu_torch.parallel import TiledInference, tta_inference
 from celldetection_tpu_torch.runtime.cpn_inference import _ensemble
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 TILE, STRIDE = 64, 48
 

@@ -36,6 +36,9 @@ from celldetection_tpu_torch.data import instance_eval as teval
 from celldetection_tpu_torch.runtime.trainer import CPNTrainer as TTrainer
 from celldetection_tpu_torch.util import serialization as tser
 from celldetection_tpu_torch.util.weights import init_jax_variables, state_dict_from_jax
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 FIXTURE = os.path.join(os.path.dirname(__file__), 'fixtures', 'cpnu12_trained.cdt')
 H, W = 96, 80

@@ -48,6 +48,9 @@ from celldetection_tpu_torch.models import densenet as tdensenet
 from celldetection_tpu_torch.models import unet as tunet
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
 from test_torch_port_cpn import _slice_parity
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 
 def _tame(variables):

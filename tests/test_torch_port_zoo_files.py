@@ -34,6 +34,9 @@ from celldetection_tpu_torch.util import serialization as tser
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
 from celldetection_tpu_torch.util.weights import body_layout
 from test_torch_port_zoo_weights import _jax_shapes, _numpy_tree
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 
 # one model of each family, narrow where its constructor takes a width

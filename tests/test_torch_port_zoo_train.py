@@ -10,6 +10,7 @@
   cannot be reproduced.
 """
 import numpy as np
+import pytest
 import torch
 
 from celldetection_tpu_torch.models import commons as tcommons
@@ -20,6 +21,9 @@ from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
 from test_torch_port_train import (_SharedDropout, _batch, _biases_before_norms,
                                    _jax_train_forward)
 from test_torch_port_zoo import _convnext
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 
 def test_convnext_train_step_matches_jax():

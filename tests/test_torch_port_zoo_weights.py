@@ -23,6 +23,9 @@ from celldetection_tpu_torch import models as tmodels
 from celldetection_tpu_torch.util import (init_jax_variables, jax_variables_from_state_dict,
                                           state_dict_from_jax)
 from celldetection_tpu_torch.util.weights import body_layout
+from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 NATIVE = ('CpnSlimU22', 'CpnWideU22', 'CpnU17', 'CpnResUNet', 'CpnConvNeXtTinyUNet',
           'CpnConvNeXtSmallUNet', 'CpnConvNeXtBaseUNet', 'CpnConvNeXtLargeUNet',
