@@ -2,7 +2,7 @@ from . import (convnext, cpn, densenet, fpn, host_encoder, manet, mobilenetv3, p
                timmodels, unet)
 from .commons import (ConvNorm, ConvNormRelu, Dropout2d, FusableReadOut, Fuse, NamedNorm, Norm,
                       Normalize, ReadOut, ResBlock, ScaledTanh, StochasticDepth, TwoConvNormRelu,
-                      fused_head_conv, get_activation)
+                      fused_head_conv, get_activation, set_norm_group_)
 from .convnext import ConvNeXt, ConvNeXtEncoder, ConvNeXtV2
 from .cpn import *  # noqa: F403  CPN, CPNCore, get_cpn and every Cpn* constructor
 from .densenet import DenseNet, DenseNetEncoder
@@ -18,7 +18,7 @@ from .unet import (U12, U17, U22, BackboneAsUNet, GeneralizedUNet, ResUNet, Slim
 
 __all__ = ['ConvNorm', 'ConvNormRelu', 'Dropout2d', 'FusableReadOut', 'Fuse', 'NamedNorm', 'Norm',
            'Normalize', 'ReadOut', 'ResBlock', 'ScaledTanh', 'StochasticDepth', 'TwoConvNormRelu',
-           'fused_head_conv', 'get_activation', 'models_by_name', 'U12', 'U17', 'U22', 'SlimU22',
+           'fused_head_conv', 'get_activation', 'set_norm_group_', 'models_by_name', 'U12', 'U17', 'U22', 'SlimU22',
            'WideU22', 'ResUNet', 'BackboneAsUNet', 'GeneralizedUNet', 'UNet', 'UNetEncoder',
            'FPN', 'BackboneWithFPN', 'FeaturePyramidNetwork', 'ResNetEncoder', 'get_resnet',
            'ConvNeXt', 'ConvNeXtEncoder', 'ConvNeXtV2', 'DenseNet', 'DenseNetEncoder',

@@ -18,6 +18,7 @@ keys are the flax paths joined by dots (``util.weights``).
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -25,7 +26,7 @@ from ..ops.commons import interpolate_nchw
 
 __all__ = ['get_activation', 'Norm', 'NamedNorm', 'ConvNorm', 'ConvNormRelu', 'TwoConvNormRelu',
            'ResBlock', 'ScaledTanh', 'Normalize', 'Dropout2d', 'StochasticDepth', 'ReadOut',
-           'FusableReadOut', 'fused_head_conv', 'Fuse', 'same_padding']
+           'FusableReadOut', 'fused_head_conv', 'Fuse', 'same_padding', 'set_norm_group_']
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9    # flax's convention: running = momentum * running + (1 - momentum) * batch
@@ -92,6 +93,11 @@ class Norm(nn.Module):
     buffers ``running_mean``/``running_var`` carry the reference names,
     without ``num_batches_tracked``, so the keys equal those of
     ``export_torch_state_dict``.
+
+    With a process group in ``group`` (:func:`set_norm_group_`), a batch
+    norm in train mode takes the statistics of the global batch, the union
+    of every rank's, as the JAX package's norm does under a data-parallel
+    ``jit`` (:class:`_GlobalBatchNorm`).
     """
 
     def __init__(self, num_features: int, kind: str = 'batchnorm2d', eps: Optional[float] = None,
@@ -110,6 +116,7 @@ class Norm(nn.Module):
             min(num_groups, num_features)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+        self.group = None
         if self.kind.startswith('batchnorm'):
             self.register_buffer('running_mean', torch.zeros(num_features))
             self.register_buffer('running_var', torch.ones(num_features))
@@ -123,6 +130,9 @@ class Norm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
+        if self.group is not None:
+            return _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                          self.running_var, self.eps, self.momentum, self.group)
         with torch.no_grad():
             # flax's statistics: E[x^2] - E[x]^2, clipped at 0
             mean = x.mean((0, 2, 3))
@@ -135,6 +145,73 @@ class Norm(nn.Module):
         # float64's (chip_smoke.py phase 11a)
         return torch.ops.aten.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.,
                                                 self.eps)[0]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the union of every rank's batch.
+
+    Forward: one all-reduce of the per-channel sums of ``x`` and ``x^2`` and
+    the element count gives flax's statistics of the global batch, ``E[x]``
+    and ``E[x^2] - E[x]^2`` clipped at 0; the native kernel normalises with
+    them and the running statistics move by ``momentum`` as flax's do.
+    Backward: one all-reduce of the per-channel sums of ``dy`` and
+    ``dy * (x - mean)`` gives the input gradient of the global batch; the
+    weight and bias gradients stay this rank's (DistributedDataParallel
+    averages them with the rest). On a card the backward runs the native
+    kernels of ``nn.SyncBatchNorm``, which has none for the CPU, where the
+    same sums are plain reductions.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, momentum, group):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+        stats = torch.cat([x.sum(dims), x.square().sum(dims), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean.square(), min=0.)
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1 - momentum) * var)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.count = group, n
+        return torch.ops.aten.native_batch_norm(x, weight, bias, mean, var, False, 0., eps)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dy = dy.contiguous()
+        c = x.shape[1]
+        if x.device.type == 'cuda':
+            sum_dy, sum_dy_xmu, grad_w, grad_b = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(sums, group=ctx.group)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sums[:c], sums[c:],
+                                                 ctx.count.to(torch.int32).reshape(1))
+            return dx, grad_w, grad_b, None, None, None, None, None
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xmu = x - mean.reshape(shape)
+        local = torch.cat([dy.sum(dims), (dy * xmu).sum(dims)])
+        grad_w, grad_b = local[c:] * invstd, local[:c].clone()
+        dist.all_reduce(local, group=ctx.group)
+        mean_dy, mean_dy_xmu = local[:c] / ctx.count, local[c:] / ctx.count
+        inv = invstd.reshape(shape)
+        dx = (dy - mean_dy.reshape(shape) - xmu * inv.square() * mean_dy_xmu.reshape(shape)) \
+            * inv * weight.reshape(shape)
+        return dx, grad_w, grad_b, None, None, None, None, None
+
+
+def set_norm_group_(model: nn.Module, group) -> nn.Module:
+    """Give every :class:`Norm` of ``model`` the process group whose global
+    batch its train-mode statistics cover (None: this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, Norm):
+            m.group = group
+    return model
 
 
 class NamedNorm(nn.Module):

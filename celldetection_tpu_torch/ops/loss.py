@@ -12,11 +12,20 @@ Two primitives follow JAX's derivative at a tie, where PyTorch's differs
 (and so do the box IoUs of :mod:`.boxes`): :func:`.commons.clip`
 (``jnp.clip``: half the gradient at a bound) and ``_abs`` (``jnp.abs``:
 slope 1 at 0).
+
+Inside :func:`global_means` every mean is over the global batch, the union
+of the ranks' batches, as the JAX package's means are under a data-parallel
+``jit``: each rank all-reduces the (detached) denominator and returns its
+local sum over the global denominator, times the world size, so that
+``DistributedDataParallel``'s average of the ranks' gradients is the
+gradient of the global mean.
 """
 import math
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .boxes import pairwise_box_iou, pairwise_generalized_box_iou, remove_small_boxes_mask
@@ -26,7 +35,22 @@ __all__ = [
     'reduce_loss', 'masked_mean', 'log_margin_loss', 'margin_loss', 'iou_loss', 'box_npll_loss',
     'sigmoid_focal_loss', 'l1_loss', 'bce_with_logits', 'cross_entropy', 'r1_regularization',
     'add_to_loss_dict', 'reduce_loss_dict', 'SigmoidFocalLoss', 'IoULoss', 'BoxNpllLoss',
+    'global_means',
 ]
+
+_MEANS_GROUP = [None]    # the process group of global_means, None outside it
+
+
+@contextmanager
+def global_means(group):
+    """Within the block, :func:`masked_mean` (and every loss's ``'mean'``
+    reduction) divides by the denominator of the whole ``group``'s batch;
+    None keeps the means local."""
+    prev, _MEANS_GROUP[0] = _MEANS_GROUP[0], group
+    try:
+        yield
+    finally:
+        _MEANS_GROUP[0] = prev
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -93,11 +117,30 @@ def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], eps: float = 1e-1
     ``mask`` broadcasts against ``x`` from the left: a per-row mask covers all
     trailing element dims.
     """
+    group = _MEANS_GROUP[0]
+    if group is not None:
+        return _global_masked_mean(x, mask, eps, group)
     if mask is None:
         return x.mean()
     mask = _expand_mask(mask, x)
     denom = mask.sum().to(x.dtype)
     return torch.where(mask, x, 0.).sum() / torch.clamp(denom, min=eps)
+
+
+def _global_masked_mean(x, mask, eps, group):
+    """This rank's share of the global masked mean, scaled by the world size
+    (see :func:`global_means`)."""
+    if mask is None:
+        local, count = x.sum(), torch.tensor(x.numel(), device=x.device)
+    else:
+        mask = _expand_mask(mask, x)
+        local, count = torch.where(mask, x, 0.).sum(), mask.sum()
+    count = count.detach().clone()
+    dist.all_reduce(count, group=group)
+    denom = count.to(x.dtype)
+    if mask is not None:
+        denom = torch.clamp(denom, min=eps)
+    return local / denom * dist.get_world_size(group)
 
 
 def reduce_loss(x: torch.Tensor, reduction: str, mask: Optional[torch.Tensor] = None):

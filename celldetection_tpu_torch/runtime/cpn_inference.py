@@ -12,27 +12,37 @@ and the ``args`` attribute; ``<name>.csv``; ``<name>_overlay.tiff``).
 Writing needs h5py, and imageio or tifffile for the overlay; reading image
 files needs imageio (or tifffile).
 
-The port runs one process on one device: ``devices`` or ``num_nodes``
-above 1, or an initialised ``torch.distributed`` group of more than one
-process, raise (multi-card inference is ROADMAP.md's Queue A 6), as does
-``demo_figure`` (the visualisation is not ported).
+Over several processes (one card each, as Lightning's ``devices=N`` runs
+the reference): ``devices=N`` starts N ranks (:func:`spawn_ranks`), or the
+caller starts them (torchrun, Slurm) and initialises ``torch.distributed``
+(:func:`..parallel.mesh.initialize_distributed`). ``group_level`` splits the
+work: ``'rank'`` gives each input to one rank; ``'job'`` runs every input on
+all ranks, each mosaic's tiles split over them
+(:func:`..parallel.tiles.multihost_tiled_inference`), and rank 0 writes;
+``'node'`` gives each input to one node and splits its tiles over that
+node's ranks. Each input has exactly one writer. ``demo_figure`` raises (the
+visualisation is not ported).
 """
 import argparse
 import glob as glob_mod
 import json
 import os
+import pickle
+import socket
+import tempfile
 import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.misc import normalize_percentile
 from ..ops.boxes import filter_by_box_voting, nms_padded
 from ..parallel.tiles import KEYS, TiledInference, tta_inference
 
 __all__ = ['cpn_inference', 'preprocess', 'resolve_model', 'resolve_accelerator',
-           'tiled_models', 'infer_input', 'write_outputs', 'main']
+           'tiled_models', 'infer_input', 'write_outputs', 'spawn_ranks', 'main']
 
 
 def preprocess(img: np.ndarray, percentile: Optional[float] = None, gamma: float = 1.,
@@ -89,35 +99,34 @@ def resolve_model(model: Union[str, object], model_parameters: Optional[str] = N
     return model
 
 
-def resolve_accelerator(accelerator: Optional[str] = None, devices=None,
-                        num_nodes: int = 1) -> torch.device:
-    """The device of ``accelerator``: the card for None, ``'auto'``, ``'gpu'``
-    and ``'cuda'`` (raises without one), the CPU for ``'cpu'``. More than
-    one device or node raises: the port runs on one."""
+def resolve_accelerator(accelerator: Optional[str] = None) -> torch.device:
+    """This process's device for ``accelerator``: the card for None,
+    ``'auto'``, ``'gpu'`` and ``'cuda'`` (``cuda:{LOCAL_RANK}`` in a process
+    group; raises without a card), the CPU for ``'cpu'``, or the device a
+    ``'cuda:N'`` names."""
+    from ..parallel.mesh import local_rank
     from ..util.device import resolve_device
-    if devices is not None and int(devices) > 1 or int(num_nodes) > 1:
-        raise NotImplementedError(f'devices={devices}, num_nodes={num_nodes}: the port runs '
-                                  f'on one device in one process (multi-card inference is '
-                                  f'ROADMAP.md, Queue A 6)')
     if accelerator in (None, 'auto', 'gpu', 'cuda'):
-        return resolve_device('cuda')
-    if accelerator == 'cpu':
-        return resolve_device('cpu')
+        grouped = dist.is_available() and dist.is_initialized()
+        return resolve_device(f'cuda:{local_rank()}' if grouped else 'cuda')
+    if accelerator == 'cpu' or str(accelerator).startswith('cuda:'):
+        return resolve_device(accelerator)
     raise ValueError(f"accelerator={accelerator!r}: the port runs on 'gpu'/'cuda' (the "
-                     f"default) or 'cpu'")
+                     f"default), 'cuda:N' or 'cpu'")
 
 
 def tiled_models(model, device, precision: str = '32', score_thresh: Optional[float] = None,
                  nms_thresh: Optional[float] = None, model_parameters: Optional[str] = None,
                  model_kwargs: Optional[str] = None, tile_size: int = 1024, stride: int = 768,
                  batch_size: Optional[int] = None, border_removal: int = 4,
-                 stitching_rule: str = 'nms') -> List[TiledInference]:
+                 stitching_rule: str = 'nms', mesh=None) -> List[TiledInference]:
     """The models of :func:`cpn_inference` on ``device``, each in a
     :class:`..parallel.tiles.TiledInference`: ``model`` (or each of a list
     or tuple, an ensemble) through :func:`resolve_model` with
     ``model_parameters`` and the JSON ``model_kwargs``, then ``precision``
     (``'bf16'`` computes the backbone and heads in bfloat16) and the
-    threshold overrides."""
+    threshold overrides. ``mesh``: the ranks that split each mosaic's tiles
+    (:class:`..parallel.tiles.TiledInference`)."""
     mk = json.loads(model_kwargs) if model_kwargs else {}
     model_list = model if isinstance(model, (list, tuple)) else [model]
     model_list = [resolve_model(m, model_parameters, device=device, **mk) for m in model_list]
@@ -129,7 +138,7 @@ def tiled_models(model, device, precision: str = '32', score_thresh: Optional[fl
         if nms_thresh is not None:
             m.nms_thresh = nms_thresh
     return [TiledInference(m, tile_size=tile_size, stride=stride, batch_size=batch_size,
-                           border_removal=border_removal, stitching_rule=stitching_rule)
+                           border_removal=border_removal, stitching_rule=stitching_rule, mesh=mesh)
             for m in model_list]
 
 
@@ -302,6 +311,8 @@ def cpn_inference(
         point_masks_dataset: str = 'point_mask', point_mask_exclusive: bool = False,
         skip_existing: bool = False, truncated_images: bool = False,
         model_kwargs: Optional[str] = None, spacing=None,
+        rank_devices: Optional[Sequence[str]] = None, backend: Optional[str] = None,
+        _with_indices: bool = False,
 ):
     """Run tiled CPN inference on large input images and write the results.
 
@@ -315,16 +326,25 @@ def cpn_inference(
         border_removal: Interior tile-border margin in px.
         stitching_rule: ``'nms'`` and/or ``'ex_br'`` (comma-separated).
         score_thresh / nms_thresh: Optional model overrides.
-        group_level: ``'rank'``, ``'node'`` or ``'job'``; with one process
-            every input is this process's.
+        group_level: ``'rank'`` (each input on one rank), ``'node'`` (each
+            input on one node, its tiles split over the node's ranks) or
+            ``'job'`` (every input on every rank, its tiles split over them);
+            with one process every input is this process's.
         labels / flat_labels: Also write the channelled and the flat label image.
         properties: Region properties to write as CSV (``separator`` joins
             the columns of a vector property, as ``bbox-0``; ``spacing``
             gives physical units).
         overlay: Write an RGBA overlay TIFF (``overlay_processes`` workers).
         reps: Test-time augmentation over flips (1-4).
-        accelerator: None, ``'auto'``, ``'gpu'`` or ``'cuda'`` (the card) or
-            ``'cpu'`` (:func:`resolve_accelerator`).
+        accelerator: None, ``'auto'``, ``'gpu'`` or ``'cuda'`` (the card),
+            ``'cuda:N'`` or ``'cpu'`` (:func:`resolve_accelerator`).
+        devices: In a process that is no rank of a group, ``devices=N > 1``
+            runs the call on N new ranks (:func:`spawn_ranks`), one card each
+            (more than the visible cards raise unless ``rank_devices`` names
+            each rank's device, e.g. ``['cuda:0', 'cuda:0']``, or the
+            accelerator is ``'cpu'``); ``backend`` overrides their
+            ``nccl``/``gloo``. In a rank of a group, the ranks of its node.
+        num_nodes: The expected number of processes (1 accepts any).
         grayscale: Average multi-channel inputs (the dtype stays).
         inputs_dataset / masks_dataset / point_masks_dataset: The h5 keys of
             ``.h5`` inputs named without ``::key``.
@@ -334,16 +354,26 @@ def cpn_inference(
         model_kwargs: JSON of overrides for loading the model(s).
 
     Returns:
-        The list of per-input results (the tiled inference's detections).
+        The list of this rank's per-input results (the tiled inference's
+        detections); from :func:`spawn_ranks`, every input's, in input order.
     """
-    from ..parallel.mesh import get_num_nodes, shard_inputs_by_process
+    call = {k: v for k, v in locals().items()
+            if k not in ('devices', 'rank_devices', 'backend', '_with_indices')}
+    from ..parallel.mesh import broadcast_from_rank0, get_num_nodes, shard_inputs_by_process
 
     if demo_figure:
         raise NotImplementedError('demo_figure: the visualisation is not ported')
-    device = resolve_accelerator(accelerator, devices, num_nodes)
-    if get_num_nodes() > 1:
-        raise NotImplementedError(f'{get_num_nodes()} processes: the port runs inputs in one '
-                                  f'process (multi-card inference is ROADMAP.md, Queue A 6)')
+    grouped = dist.is_available() and dist.is_initialized()
+    if devices is not None and int(devices) > 1 and not grouped:
+        return spawn_ranks(int(devices), call, rank_devices, backend)
+    world = get_num_nodes()
+    if int(num_nodes) not in (1, world):
+        raise ValueError(f'num_nodes={num_nodes} but {world} process(es) run: start one process '
+                         f'per rank (torchrun, or devices=N)')
+    local_world = int(os.environ.get('LOCAL_WORLD_SIZE', world))
+    if grouped and devices is not None and int(devices) not in (1, local_world):
+        raise ValueError(f'devices={devices} but this node runs {local_world} rank(s)')
+    device = resolve_accelerator(accelerator)
     os.makedirs(outputs, exist_ok=True)
     if truncated_images:
         try:
@@ -352,9 +382,19 @@ def cpn_inference(
             raise ImportError('truncated_images needs the package PIL') from e
         ImageFile.LOAD_TRUNCATED_IMAGES = True
 
+    # the ranks that share each input: all under 'job', the node's under
+    # 'node', this one alone under 'rank'
+    share = None
+    if world > 1 and group_level == 'job':
+        share = dist.group.WORLD
+    elif world > 1 and group_level == 'node':
+        share = _node_group()
+    if share is not None and dist.get_world_size(share) == 1:
+        share = None
+    writer = share is None or dist.get_rank(share) == 0
     tiled_list = tiled_models(model, device, precision, score_thresh, nms_thresh,
                               model_parameters, model_kwargs, tile_size, stride, batch_size,
-                              border_removal, stitching_rule)
+                              border_removal, stitching_rule, mesh=share)
 
     if isinstance(inputs, np.ndarray):
         file_list = [inputs]
@@ -373,8 +413,12 @@ def cpn_inference(
         name = (os.path.splitext(os.path.basename(src))[0]
                 if isinstance(src, str) else f'array{src_idx}')
         try:
-            if skip_existing and os.path.isfile(os.path.join(outputs, f'{name}.h5')):
-                continue
+            if skip_existing:
+                exists = os.path.isfile(os.path.join(outputs, f'{name}.h5'))
+                if share is not None:   # the ranks that share the input decide as one
+                    exists = broadcast_from_rank0(exists, share)
+                if exists:
+                    continue
             computed = infer_input(
                 src, tiled_list, mask_list[src_idx] if mask_list else None,
                 point_list[src_idx] if point_list else None, name=name, percentile=percentile,
@@ -384,14 +428,92 @@ def cpn_inference(
                 point_mask_exclusive=point_mask_exclusive, min_vote=min_vote, reps=reps,
                 labels=labels, flat_labels=flat_labels, properties=properties, spacing=spacing,
                 separator=separator, overlay=overlay, overlay_processes=overlay_processes)
-            write_outputs(outputs, computed, args)
-            results.append(computed['result'])
+            if writer:
+                write_outputs(outputs, computed, args)
+            results.append((src_idx, computed['result']) if _with_indices else computed['result'])
         except Exception as e:
             if continue_on_exception:
                 print(f'cpn_inference: skipping {name}: {type(e).__name__}: {e}')
                 continue
             raise
     return results
+
+
+def _node_group():
+    """This rank's node as a process group (:func:`..parallel.mesh._node_topology`);
+    every rank makes every node's group, in node order."""
+    from ..parallel.mesh import _node_topology, host_group
+    world = dist.get_world_size()
+    node = torch.tensor([_node_topology()[0]])
+    nodes = [torch.zeros_like(node) for _ in range(world)]
+    dist.all_gather(nodes, node, group=host_group())
+    nodes = [int(n) for n in nodes]
+    mine = None
+    for n in sorted(set(nodes)):
+        g = dist.new_group([r for r in range(world) if nodes[r] == n])
+        if n == nodes[dist.get_rank()]:
+            mine = g
+    return mine
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, port: int, devices: Sequence[str], backend: Optional[str], call: dict,
+               out_dir: str):
+    from ..parallel.mesh import initialize_distributed
+    if torch.device(devices[rank]).type == 'cpu' and 'OMP_NUM_THREADS' not in os.environ:
+        # as torchrun does: CPU ranks share the cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
+    initialize_distributed(f'localhost:{port}', len(devices), rank, backend=backend,
+                           device=devices[rank])
+    try:
+        indexed = cpn_inference(**dict(call, accelerator=devices[rank]), _with_indices=True)
+        with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
+            pickle.dump(indexed, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(n: int, call: dict, rank_devices: Optional[Sequence[str]] = None,
+                backend: Optional[str] = None) -> list:
+    """Run ``cpn_inference(**call)`` on ``n`` new processes (``spawn``), ranks of
+    one ``torch.distributed`` group over ``localhost``, as Lightning's
+    ``devices=N`` runs the reference.
+
+    Rank ``r`` runs on ``rank_devices[r]`` where given, else on the CPU for
+    ``accelerator='cpu'``, else on ``cuda:r``: more ranks than visible cards
+    raise. A rank that fails ends the others and raises here.
+
+    Returns:
+        Every input's result, in input order (under ``'job'`` and ``'node'``
+        the first rank's copy).
+    """
+    import torch.multiprocessing as mp
+    if rank_devices is None:
+        if call.get('accelerator') == 'cpu':
+            rank_devices = ['cpu'] * n
+        else:
+            cards = torch.cuda.device_count()
+            if cards < n:
+                raise ValueError(f'devices={n} but {cards} card(s) are visible; name each '
+                                 f'rank\'s device with rank_devices (e.g. cuda:0 twice)')
+            rank_devices = [f'cuda:{r}' for r in range(n)]
+    if len(rank_devices) != n:
+        raise ValueError(f'devices={n} but {len(rank_devices)} rank_devices')
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(_rank_main, args=(_free_port(), list(rank_devices), backend, call,
+                                             out_dir), nprocs=n, start_method='spawn')
+        merged = {}
+        for r in range(n):
+            with open(os.path.join(out_dir, f'rank{r}.pkl'), 'rb') as f:
+                for idx, res in pickle.load(f):
+                    merged.setdefault(idx, res)
+    return [merged[i] for i in sorted(merged)]
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -434,8 +556,12 @@ def main(argv: Optional[Sequence[str]] = None):
                    help='Test-time augmentation over flips (1-4)')
     p.add_argument('--accelerator', default=None,
                    help="'gpu'/'cuda' (the default) or 'cpu'")
-    p.add_argument('--devices', type=int, default=None)
+    p.add_argument('--devices', type=int, default=None,
+                   help='Ranks to start, one card each (or the ranks of this node)')
     p.add_argument('--num_nodes', type=int, default=1)
+    p.add_argument('--rank_devices', nargs='+', default=None,
+                   help='Each started rank\'s device (e.g. cuda:0 cuda:0)')
+    p.add_argument('--backend', default=None, help='nccl or gloo for the started ranks')
     p.add_argument('--min_vote', type=int, default=1,
                    help='Ensemble box voting: min models that must agree')
     p.add_argument('--grayscale', action='store_true',
@@ -457,7 +583,15 @@ def main(argv: Optional[Sequence[str]] = None):
                    help='JSON kwargs for model construction')
     p.add_argument('--spacing', type=float, nargs='+', default=None,
                    help='Physical pixel spacing for property export')
-    cpn_inference(**vars(p.parse_args(argv)))
+    args = vars(p.parse_args(argv))
+    if not (dist.is_available() and dist.is_initialized()):
+        # under torchrun or Slurm (WORLD_SIZE / SLURM_NTASKS above 1) this
+        # process is one rank: join the others
+        from ..parallel.mesh import initialize_distributed
+        acc = args['accelerator']
+        initialize_distributed(backend=args['backend'], device=acc if acc == 'cpu' or str(
+            acc).startswith('cuda:') else None)
+    cpn_inference(**args)
 
 
 if __name__ == '__main__':

@@ -1,11 +1,13 @@
-"""CPN training, validation and prediction on one card.
+"""CPN training, validation and prediction, on one card or data-parallel over ranks.
 
 Counterpart of ``celldetection_tpu/runtime/trainer.py``: ``CPNTrainer`` with
-``__init__`` (49-85), ``_make_batch`` (89-122), ``fit`` (124-253),
-``gather_item_records`` (255-278), ``validate`` (282-357), the
-hyperparameters of prediction (360-377), ``predict`` (379-401) and the
-msgpack checkpoints (420-482). The metrics logger, figure logging and a
-device mesh belong to later slices of the port and raise here.
+``__init__`` (49-85), ``_make_batch`` (89-122), ``fit`` (124-253, its
+multi-process epochs at 163-214), ``gather_item_records`` (255-278),
+``validate`` (282-357, ``distributed`` at 293-300), the hyperparameters of
+prediction (360-377), ``predict`` (379-401) and the msgpack checkpoints
+(420-482). With a ``mesh`` (:func:`..parallel.mesh.make_mesh`) the trainer
+runs on every rank of it, one card each; the metrics logger and figure
+logging belong to a later slice of the port and raise here.
 """
 import os
 import time
@@ -15,12 +17,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.cpn import contours2labels
 from ..data.instance_eval import LabelMatcher, LabelMatcherList
 from ..data.misc import random_crop, random_pad
 from ..data.targets import collate_cpn_targets, cpn_targets_single
-from ..parallel.train import DDP_SLICE, TrainState, make_train_step
+from ..parallel.mesh import host_all_reduce_sum, host_group, mesh_group, shard_inputs_by_process
+from ..parallel.train import TrainState, make_train_step, mesh_spans_processes
 from ..util._msgpack import msgpack_restore, msgpack_serialize, packb, unpackb
 from ..util.config import conf2optimizer
 from ..util.weights import body_layout, jax_variables_from_state_dict, state_dict_from_jax
@@ -68,7 +72,12 @@ class CPNTrainer:
             than this.
         ema_decay: Decay of the loss's moving average.
         seed: Seeds the host pipeline (shuffles, per-item seeds) and the
-            ``torch.Generator`` of the training steps' random draws.
+            ``torch.Generator`` of the training steps' random draws (rank
+            ``r`` of a mesh seeds its generator with ``seed + r``).
+        mesh: Optional ``DeviceMesh`` (or process group) of ranks, one card
+            each: every rank builds the same trainer and calls :meth:`fit`
+            with the same data; each trains on its slice of every batch
+            (:func:`..parallel.train.make_train_step`).
     """
 
     def __init__(self, model, optimizer=None, scheduler: Optional[Callable[[int], float]] = None,
@@ -77,8 +86,6 @@ class CPNTrainer:
                  tile_size: int = 1024, tile_stride: int = 512, ema_decay: float = 0.99,
                  log_fn: Callable = print, seed: int = 0, metrics_logger=None,
                  log_figures_every: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(DDP_SLICE)
         if metrics_logger is not None or log_figures_every:
             raise NotImplementedError('the metrics logger and figure logging are not ported '
                                       'yet; they come with the slice of the command-line '
@@ -90,8 +97,9 @@ class CPNTrainer:
             optimizer = conf2optimizer({'Adam': {'lr': 1e-3}})
         elif isinstance(optimizer, dict):
             optimizer = conf2optimizer(optimizer)
+        self.mesh = mesh
         self.state = TrainState.create(model, optimizer, scheduler)
-        self._step_fn = make_train_step(model, self.state.optimizer,
+        self._step_fn = make_train_step(model, self.state.optimizer, mesh=mesh,
                                         scheduler=self.state.scheduler)
         self.max_imsize = max_imsize
         self.tile_size = tile_size
@@ -99,7 +107,8 @@ class CPNTrainer:
         self.ema_decay = ema_decay
         self.log_fn = log_fn
         self.seed = seed
-        self.generator = torch.Generator(device=model.device).manual_seed(seed)
+        rank = dist.get_rank(mesh_group(mesh)) if mesh_spans_processes(mesh) else 0
+        self.generator = torch.Generator(device=model.device).manual_seed(seed + rank)
         self._np_seed_counter = 0
         self._ema_loss = None
         self._tiled = None
@@ -159,6 +168,13 @@ class CPNTrainer:
         :meth:`validate`); with ``checkpoint_dir`` each epoch ends by writing
         ``last.ckpt``. Returns ``history``: per epoch the last loss and its
         moving average.
+
+        With a mesh of several ranks every rank walks the same epoch order
+        and builds its slice, ``batch_size // world`` items, of each batch
+        from the same per-item seeds, so an item's crop and targets do not
+        depend on the rank that builds it; ``batch_size`` must divide by the
+        world size. The losses are the global batch's, the same on every
+        rank.
         """
         samples = samples or self.model.samples
         order = order or self.model.order
@@ -170,6 +186,14 @@ class CPNTrainer:
         item_loss = np.zeros(n)
         item_seen = np.zeros(n, bool)
         prefetch = max(prefetch, 1)
+        n_proc, rank = 1, 0
+        if mesh_spans_processes(self.mesh):
+            group = mesh_group(self.mesh)
+            n_proc, rank = dist.get_world_size(group), dist.get_rank(group)
+            if batch_size % n_proc:
+                raise ValueError(f'multi-process fit: batch_size ({batch_size}) must be divisible '
+                                 f'by the number of ranks ({n_proc})')
+        lo, hi = rank * (batch_size // n_proc), (rank + 1) * (batch_size // n_proc)
         pool = ThreadPoolExecutor(max_workers=prefetch)
         try:
             for epoch in range(epochs):
@@ -193,12 +217,12 @@ class CPNTrainer:
                 def submit(j):
                     gidx = epoch_idx[starts[j]:starts[j] + batch_size]
                     seeds = batch_rngs[j].randint(2 ** 31, size=len(gidx))
-                    return pool.submit(self._make_batch, train_data, gidx, samples, order,
-                                       max_instances, batch_rngs[j], crop_size, seeds)
+                    return pool.submit(self._make_batch, train_data, gidx[lo:hi], samples, order,
+                                       max_instances, batch_rngs[j], crop_size, seeds[lo:hi])
 
                 window = {j: submit(j) for j in range(min(prefetch, len(starts)))}
                 for bi, start in enumerate(starts):
-                    idx = epoch_idx[start:start + batch_size]
+                    idx = epoch_idx[start:start + batch_size][lo:hi]
                     batch = window.pop(bi).result()
                     if bi + prefetch < len(starts):
                         window[bi + prefetch] = submit(bi + prefetch)
@@ -228,8 +252,32 @@ class CPNTrainer:
         return self.history
 
     def gather_item_records(self) -> Dict[int, list]:
-        """The epoch's per-item loss records (one process: this one's)."""
-        return getattr(self, 'item_record', {})
+        """The epoch's per-item loss records, merged over the ranks of the
+        mesh (the reference's ``all_gather_object``): each rank's ``(item,
+        loss)`` pairs, padded to the longest, go through one host all-gather."""
+        record = getattr(self, 'item_record', {})
+        if not mesh_spans_processes(self.mesh):
+            return record
+        group = host_group(mesh_group(self.mesh))
+        world = dist.get_world_size(group)
+        keys = torch.tensor([k for k, v in record.items() for _ in v], dtype=torch.int64)
+        vals = torch.tensor([r['batch_loss'] for v in record.values() for r in v],
+                            dtype=torch.float64)
+        counts = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+        dist.all_gather(counts, torch.tensor([len(keys)]), group=group)
+        m = int(max(c.item() for c in counts))
+        pad = m - len(keys)
+        keys = torch.cat([keys, torch.full((pad,), -1, dtype=torch.int64)])
+        vals = torch.cat([vals, torch.zeros(pad, dtype=torch.float64)])
+        keys_all = [torch.empty_like(keys) for _ in range(world)]
+        vals_all = [torch.empty_like(vals) for _ in range(world)]
+        dist.all_gather(keys_all, keys, group=group)
+        dist.all_gather(vals_all, vals, group=group)
+        merged: Dict[int, list] = {}
+        for k, v in zip(torch.cat(keys_all).tolist(), torch.cat(vals_all).tolist()):
+            if k >= 0:
+                merged.setdefault(int(k), []).append({'batch_loss': float(v)})
+        return merged
 
     # --- prediction ---------------------------------------------------------
 
@@ -289,9 +337,17 @@ class CPNTrainer:
         reduced over ``iou_threshs``; ``reduce_fn`` sums the counts over
         processes. With ``calibrate`` the best setting by ``f1_np`` is set on
         the model. Returns the best setting's metrics with ``best_hparams``.
+
+        ``distributed=True`` (every rank calls it with the same data) gives
+        each rank the items ``i % world == rank`` and sums the counts over
+        the ranks with :func:`..parallel.mesh.host_all_reduce_sum`, so every
+        rank gets the metrics and ``best_hparams`` of the whole set;
+        ``val_results`` keeps this rank's items' counts.
         """
         if distributed:
-            raise NotImplementedError(DDP_SLICE)
+            group = mesh_group(self.mesh)
+            val_data = shard_inputs_by_process(list(val_data), 'rank')
+            reduce_fn = reduce_fn or (lambda v: host_all_reduce_sum(v, group))
         self.model.eval()
         keys = list(self.val_hparams.keys())
         results, self.val_results = {}, []
@@ -335,7 +391,8 @@ class CPNTrainer:
             results[combo] = metrics
             # counts [image, IoU threshold, (TP, FP, FN)]
             self.val_results.append({'setting': setting, 'metrics': metrics,
-                                     'counts': np.array(counts).transpose(1, 0, 2)})
+                                     'counts': np.array(counts).reshape(len(iou_threshs), -1, 3)
+                                     .transpose(1, 0, 2)})
             self.log_fn(f'val {setting}: f1_np={metrics["f1_np"]:.4f}')
             self._apply_model_hparams(combo_saved)
         self.val_seconds = seconds
@@ -364,6 +421,10 @@ class CPNTrainer:
         ``opt_state`` holds the optimizer's and the schedule's state dicts,
         ``rng`` the state of the steps' ``torch.Generator`` and the count of
         ``fit`` calls that seeds the host pipeline.
+
+        With a mesh of several ranks (every rank calls it), rank 0 writes the
+        file and the others wait for it at a barrier: the file is the one a
+        single process writes (rank 0's generator state).
         """
         if backend == 'orbax':
             raise NotImplementedError('Orbax is the JAX package\'s checkpointer; the port '
@@ -381,9 +442,13 @@ class CPNTrainer:
                     'np_seed_counter': self._np_seed_counter},
             'best_hparams': self.best_hparams,
         }
-        os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
-        with open(path, 'wb') as f:
-            f.write(packb(payload))
+        multi = mesh_spans_processes(self.mesh)
+        if not multi or dist.get_rank(mesh_group(self.mesh)) == 0:
+            os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+            with open(path, 'wb') as f:
+                f.write(packb(payload))
+        if multi:
+            dist.barrier(group=host_group(mesh_group(self.mesh)))
 
     def load_checkpoint(self, path: str, backend: str = 'msgpack'):
         """Restore what :meth:`save_checkpoint` wrote into this trainer."""

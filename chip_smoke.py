@@ -92,7 +92,25 @@ Phases, in order; any failure exits non-zero:
  15. the zoo's main path on 1024^2 tiles as phase 5: CpnConvNeXtBaseUNet in
      fp32 at batch 1 and bf16 at batch 4, CpnDenseNet121UNet,
      CpnMobileNetV3LargeFPN and CpnResNet50MaNet in bf16 at batch 4 (the
-     kernel launches of these runs are ``launches_zoo``).
+     kernel launches of these runs are ``launches_zoo``);
+ 16. the batch inference CLI: CpnU22 saved with ``save_model``, loaded by
+     ``tiled_models``, ``infer_input`` on a 4096^2 uint8 blob mosaic four ways
+     (``launches_cli``), then card against CPU on 640^2;
+ 17. CpnU22 with every head option, card against CPU at 256^2 and on 1024^2
+     tiles (``launches_heads``);
+ 18. two ranks of ``torch.distributed`` on the one card over gloo, each a
+     process of its own: (a) ``make_train_step`` over the mesh on phase
+     11b's workload, 3 steps at K = 65,536 (TF32 and dropout off) with the
+     ranks' parameters bit-identical and the losses against one process on
+     the union batch, then 20 timed steps at K = 512 (imgs/s, ms a step, the
+     gradient all-reduce, peak memory); (b) ``multihost_tiled_inference`` of
+     phase 7's 8192^2 mosaic in fp32 at batch 1 (ms by stage, the exchange's
+     bytes, every NMS call held against its plain version and timed; the
+     kernel launches of that run are ``launches_ddp``), its result the same
+     on both ranks and against phase 7's; (c) ``validate(distributed=True)``
+     on phase 13's images against phase 13; (d) ``cpn_inference`` on phase
+     16's mosaic under ``'rank'`` and ``'job'`` against 16a's outputs, one
+     writer an input.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1067,7 +1085,9 @@ def phase_gigapixel(card, floor):
             _, b, v = sort_by_score(boxes[None], scores[None], valid[None])
             time_sweep(f'stitch {label} exact pass', b, v, nms_sweep(b, v, t), t, card, floor)
         del flat, boxes, scores, valid
-    return launches
+    fp32_run = runs['8192^2 fp32 batch 1 (TF32 convolutions)'][0]
+    return launches, dict(inputs=dict(tiles_state=sd, tiles_thresh=thresh['fp32'], mosaic8=mosaic8),
+                          tiles_result=fp32_run)
 
 
 def phase_tiled_flagship(card):
@@ -1504,7 +1524,10 @@ def phase_validate(card, fixed, ckpt, errs, floor):
           f'{card_out["best_hparams"]}; largest count difference per image {worst}', flush=True)
     check(worst <= 1, f'card and CPU counts differ by {worst} instances in an image')
     check(cpu_out['best_hparams'] == card_out['best_hparams'], 'best_hparams differ')
-    return runs[False][3]
+    ref = dict(inputs=dict(val_state={k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                           val_hparams=hparams, val_data=val),
+               val_results=card_results, val_best=card_out['best_hparams'])
+    return runs[False][3], ref
 
 
 # phase 14: each new family at full width and depth (as the JAX package builds
@@ -1780,10 +1803,12 @@ def phase_cli(rng, card, errs, floor):
           f'NMS calls {[c[0] for c in rec.calls]}, not {sorted(names)}')
     hold_recorded(rec.calls, errs, card, floor, names,
                   timed=(('16a', 0), ('16c', 2), ('16d', 2)))
-    del out, tiled
+    ref = dict(inputs=dict(cli_state=src.state_dict(), cli_thresh=thresh['32'], mosaic_cli=mosaic),
+               cli_result=a['result'], cli_flat=a['flat_labels'])
+    del out, tiled, a
     torch.cuda.empty_cache()
     phase_cli_card_vs_cpu(rng)
-    return launches
+    return launches, ref
 
 
 def rounded_alike(a, b, match):
@@ -1915,6 +1940,354 @@ def phase_heads(rng, card, errs, floor):
     return launches
 
 
+# phase 18: data-parallel training and multi-process tiled inference, two
+# ranks on the one card over gloo (a check of correctness, not of scaling)
+DDP_RANKS = 2
+DDP_K = TRAIN_SIZE * TRAIN_SIZE      # 65,536, the score map's pixels: every fg pixel is selected
+DDP_PARITY_STEPS, DDP_TIMED_STEPS = 3, 20
+# two-rank losses against one process: the first step's within float32
+# rounding of sums in another order; the loss is not smooth (the refinement
+# rounds to pixels, the IoU masks boxes by size), so later steps part as two
+# runs of the JAX package part with every weight moved by one ulp (up to
+# 9e-3 in 4 steps, tests/test_torch_port_train.py)
+DDP_RTOL_FIRST, DDP_RTOL = 1e-5, 1e-2
+
+
+def params_digest(model):
+    """sha256 of every parameter's bytes, in order (bit-identity across ranks)."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dropout_off(model):
+    for m in model.modules():
+        if isinstance(m, models.Dropout2d):
+            m.p = 0.
+    return model
+
+
+def ddp_rank_train(rank, inp, out):
+    """(a) make_train_step over the mesh: the parity steps at K = 65,536 (TF32
+    off, dropout off), then the timed steps at K = 512."""
+    import torch.distributed as dist
+    from celldetection_tpu_torch import parallel
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = parallel.make_mesh()
+    lo, hi = rank * TRAIN_BATCH // DDP_RANKS, (rank + 1) * TRAIN_BATCH // DDP_RANKS
+    local = {k: v[lo:hi] for k, v in inp['train_batch'].items()}
+    model = dropout_off(models.CpnU22(in_channels=1, samples=32, max_detections=DDP_K))
+    model.load_state_dict(inp['train_state'], strict=True)
+    state = TrainState.create(model, conf2optimizer({'Adam': {'lr': 5e-4}}))
+    step = make_train_step(model, state.optimizer, mesh=mesh)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + rank)
+    losses, digests = [], []
+    for _ in range(DDP_PARITY_STEPS):
+        state, metrics = step(state, local, gen)
+        losses.append(float(metrics['loss']))
+        digests.append(params_digest(model))
+    out['train'] = dict(losses=losses, digests=digests)
+    del model, state, step
+
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default, as phase 11b
+    model = models.CpnU22(in_channels=1, **TRAIN)
+    model.load_state_dict(inp['train_state'], strict=True)
+    state = TrainState.create(model, conf2optimizer({'Adam': {'lr': 5e-4}}))
+    step = make_train_step(model, state.optimizer, mesh=mesh)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in local.items()}
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DDP_TIMED_STEPS):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DDP_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the gradient all-reduce alone: every gradient's bytes in one tensor, as
+    # DistributedDataParallel's buckets carry them over the same group
+    numel = sum(p.numel() for p in model.parameters())
+    flat = torch.zeros(numel, device='cuda')
+    dist.all_reduce(flat)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) / 5 * 1e3
+    out['train'].update(step_ms=step_s * 1e3, imgs_s=TRAIN_BATCH / step_s, peak=peak,
+                        allreduce_ms=allreduce_ms, allreduce_bytes=4 * numel, params=numel)
+    del model, state, step, flat
+    torch.cuda.empty_cache()
+
+
+def ddp_rank_tiles(rank, inp, out, errs):
+    """(b) multihost_tiled_inference of phase 7's 8192^2 mosaic (fp32 b1), its
+    NMS calls recorded and held against the plain versions."""
+    import torch.distributed as dist
+    from celldetection_tpu_torch.parallel import multihost_tiled_inference
+    torch.backends.cudnn.allow_tf32 = True          # as phase 7's fp32 run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = models.CpnU22(in_channels=1, max_detections=2048, samples=32)
+    model.load_state_dict(inp['tiles_state'], strict=True)
+    tiled = TiledInference(model, tile_size=TILE, stride=768, batch_size=1, max_outputs=400_000)
+    mosaic, thresh = inp['mosaic8'], inp['tiles_thresh']
+    multihost_tiled_inference(tiled, mosaic[:2 * TILE, :2 * TILE], score_thresh=thresh)   # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()                    # the path's run: counts from 0
+    with SweepRecorder() as rec:
+        rec.label = '18b'
+        t0 = time.perf_counter()
+        res = multihost_tiled_inference(tiled, mosaic, score_thresh=thresh)
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    stats = dict(tiled.stats)
+    out['tiles'] = dict(result=res, seconds=seconds, stats=stats, launches=launches,
+                        calls=[(c[0], tuple(c[2].shape), int(c[2].sum()), int(c[4].sum()))
+                               for c in rec.calls])
+    names = {c[0]: f'rank {rank} local stitch' if c[0][1] == 0 else 'final NMS across ranks'
+             for c in rec.calls}
+    # every call against its plain versions on both ranks; rank 0 times its own
+    hold_recorded(rec.calls, errs, f'rank {rank}', 0., names)
+    dist.barrier()
+    if rank == 0:           # the local stitch and the last round of the final NMS
+        floor = launch_floor_ms()
+        card = card_line()
+        for key, b, v, t, keep in (rec.calls[0], rec.calls[-1]):
+            ms, _ = time_sweep(f'B={v.shape[0]} N={v.shape[1]} t={t} ({names[key]})', b, v, keep,
+                               t, card, floor)
+            plain_ms = cuda_ms(lambda: _nms_sweep(b, v, t), 1, warmup=0)
+            print(f'  [{card}] plain _nms_sweep {v.shape[0]} x {v.shape[1]} ({names[key]}): '
+                  f'{plain_ms:.3f} ms; nms_sweep {ms:.4f} ms', flush=True)
+    dist.barrier()
+    del rec
+    torch.cuda.empty_cache()
+
+
+def ddp_rank_validate(rank, inp, out):
+    """(c) validate(distributed=True) of phase 13's model over its 4 images."""
+    torch.backends.cudnn.allow_tf32 = False         # as phase 13's validate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = models.CpnU22(in_channels=1, **TRAIN)
+    model.load_state_dict(inp['val_state'], strict=True)
+    trainer = CPNTrainer(model, val_hparams=inp['val_hparams'], log_fn=lambda *a: None, seed=SEED)
+    t0 = time.perf_counter()
+    metrics = trainer.validate(inp['val_data'], distributed=True)
+    out['validate'] = dict(metrics=metrics, seconds=time.perf_counter() - t0,
+                           counts=[r['counts'] for r in trainer.val_results])
+
+
+def ddp_rank_cli(rank, inp, out):
+    """(d) cpn_inference of phase 16's 4096^2 mosaic under 'rank' (two inputs)
+    and 'job' (one); the writer records instead of writing (the card's machine
+    has no h5py)."""
+    cli = sys.modules['celldetection_tpu_torch.runtime.cpn_inference']
+    torch.backends.cudnn.allow_tf32 = True          # as phase 16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = models.CpnU22(in_channels=1, max_detections=2048, samples=32)
+    model.load_state_dict(inp['cli_state'], strict=True)
+    written = []
+    cli.write_outputs = lambda outputs, computed, args: written.append(
+        (computed['name'], computed['result'], computed['flat_labels']))
+    kw = dict(tile_size=TILE, stride=768, score_thresh=inp['cli_thresh'], accelerator='cuda:0',
+              flat_labels=True, outputs=os.path.join(inp['tmp'], 'cli'))
+    mosaic = inp['mosaic_cli']
+    t0 = time.perf_counter()
+    cli.cpn_inference([mosaic, mosaic], model, group_level='rank', **kw)
+    t1 = time.perf_counter()
+    cli.cpn_inference([mosaic], model, group_level='job', **kw)
+    out['cli'] = dict(written=written, rank_s=t1 - t0, job_s=time.perf_counter() - t1)
+
+
+def ddp_rank(rank, port, tmp):
+    """One rank of phase 18 (a process of its own, on cuda:0)."""
+    import torch.distributed as dist
+    from celldetection_tpu_torch.parallel import initialize_distributed
+    initialize_distributed(f'localhost:{port}', DDP_RANKS, rank, backend='gloo', device='cuda:0',
+                           timeout=600)
+    inp = torch.load(os.path.join(tmp, 'inputs.pt'), weights_only=False)
+    inp['tmp'] = tmp
+    out, errs = {}, {}
+    try:
+        t0 = time.perf_counter()
+        ddp_rank_train(rank, inp, out)
+        out['train_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ddp_rank_tiles(rank, inp, out, errs)
+        out['tiles_s'] = time.perf_counter() - t0
+        ddp_rank_validate(rank, inp, out)
+        ddp_rank_cli(rank, inp, out)
+        out['errs'] = errs
+        torch.save(out, os.path.join(tmp, f'rank{rank}.pt'))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def same_result(a, b):
+    """Two tiled results equal bit for bit."""
+    return (all(np.array_equal(a[k], b[k]) for k in ('contours', 'boxes', 'scores', 'classes',
+                                                     'locations', 'fourier'))
+            and all(a[k] == b[k] for k in ('num_tiles', 'num_valid', 'overflow')))
+
+
+def kept_difference(a, b):
+    """How many of ``a``'s boxes ``b`` lacks, and the other way round (bit for bit)."""
+    sa = {r.tobytes() for r in a['boxes']}
+    sb = {r.tobytes() for r in b['boxes']}
+    return len(sa - sb), len(sb - sa)
+
+
+def phase_ddp(card, errs, refs):
+    """Phase 18: two ranks on the one card over gloo drive the data-parallel
+    training step, multihost_tiled_inference, validate(distributed=True) and
+    cpn_inference; each held against one process. ``refs``: phase 7's fp32
+    model, threshold, mosaic and result; phase 13's model, sweep, images and
+    results; phase 16's model, threshold, mosaic and 16a's outputs. Returns
+    the NMS kernels' launches in (b), summed over the ranks."""
+    import torch.multiprocessing as mp
+    print(f'== phase 18: {DDP_RANKS} ranks on cuda:0 over gloo (torch.distributed; the tensors '
+          f'stay on the card, gloo stages the collectives through the host: correctness, not '
+          f'scaling)', flush=True)
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs = disk_images(TRAIN_BATCH, TRAIN_SIZE, SEED + 18)
+    batch = train_batch(pairs, TRAIN['samples'], SEED + 18)
+    model = dropout_off(models.CpnU22(in_channels=1, samples=32, max_detections=DDP_K))
+    sd = random_weights(model)
+    model.load_state_dict(sd, strict=True)
+    state = TrainState.create(model, conf2optimizer({'Adam': {'lr': 5e-4}}))
+    step = make_train_step(model, state.optimizer)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    single = [float(step(state, batch, gen)[1]['loss']) for _ in range(DDP_PARITY_STEPS)]
+    del model, state, step
+    torch.cuda.empty_cache()
+    inputs = dict(train_state={k: v.cpu() for k, v in sd.items()}, train_batch=batch,
+                  **refs['inputs'])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(inputs, os.path.join(tmp, 'inputs.pt'))
+        t0 = time.perf_counter()
+        mp.start_processes(ddp_rank, args=(free_port(), tmp), nprocs=DDP_RANKS,
+                           start_method='spawn')
+        ranks_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f'rank{r}.pt'), weights_only=False)
+                for r in range(DDP_RANKS)]
+    for o in outs:
+        for name, err in o['errs'].items():
+            errs[name] = max(errs.get(name, 0.), err)
+    a, b = outs
+    fails = []
+
+    def expect(cond, msg):
+        if not cond:
+            fails.append(msg)
+            print(f'  FAILED: {msg}', flush=True)
+
+    # (a) training
+    ta, tb = a['train'], b['train']
+    print(f'  (a) make_train_step over 2 ranks, full-width CpnU22 (one channel), '
+          f'{TRAIN_SIZE}^2, global batch {TRAIN_BATCH} ({TRAIN_BATCH // DDP_RANKS} a rank), '
+          f'Adam 5e-4: {DDP_PARITY_STEPS} parity steps at K {DDP_K} (TF32 off, dropout off): '
+          f'losses {ta["losses"]} (rank 1 {tb["losses"]}), one process on the union batch '
+          f'{single}; largest relative difference '
+          f'{[abs(x - y) / abs(y) for x, y in zip(ta["losses"], single)]} (rtol '
+          f'{DDP_RTOL_FIRST} for the first step, {DDP_RTOL} after it); parameters '
+          f'bit-identical across the ranks after every step: {ta["digests"] == tb["digests"]}',
+          flush=True)
+    expect(ta['digests'] == tb['digests'], 'the ranks\' parameters differ')
+    expect(ta['losses'] == tb['losses'], 'the ranks\' losses differ')
+    expect(np.allclose(ta['losses'][0], single[0], rtol=DDP_RTOL_FIRST, atol=0)
+           and np.allclose(ta['losses'], single, rtol=DDP_RTOL, atol=0),
+           'two-rank losses differ from one process\'s')
+    for r, t in enumerate((ta, tb)):
+        print(f'  [{card}] (a) rank {r}: {DDP_TIMED_STEPS} timed steps at K '
+              f'{TRAIN["max_detections"]}: {t["step_ms"]:.2f} ms a step, {t["imgs_s"]:.3f} '
+              f'imgs/s (global batch, host clock); the gradient all-reduce alone {t["allreduce_ms"]:.2f} ms for '
+              f'{t["allreduce_bytes"]} bytes ({t["params"]} parameters, gloo through the host); '
+              f'peak memory {t["peak"]:.2f} GiB', flush=True)
+
+    # (b) multi-process tiled inference
+    ra, rb = a['tiles']['result'], b['tiles']['result']
+    want = refs['tiles_result']
+    for r, o in enumerate(outs):
+        t = o['tiles']
+        st = t['stats']
+        print(f'  [{card}] (b) rank {r}: multihost_tiled_inference 8192^2 fp32 b1, '
+              f'{ra["num_tiles"]} tiles over 2 ranks in {t["seconds"]:.3f} s = '
+              f'{ra["num_tiles"] / t["seconds"]:.3f} tiles/s; forwards {st["forward_ms"]:.1f} ms '
+              f'({st["num_tiles"]} tiles), retries {st["retry_ms"]:.1f} ms, local stitch '
+              f'{st["stitch_ms"]:.1f} ms, exchange {st["exchange_ms"]:.1f} ms '
+              f'({st["exchange_bytes"]} bytes received), final NMS {st["final_nms_ms"]:.1f} ms, '
+              f'readback {st["readback_ms"]:.1f} ms; final NMS rounds {st["rounds"]}, rows '
+              f'restored {st["restored"]}; NMS calls (B x N, valid, kept) '
+              f'{t["calls"]}; launches {t["launches"]}', flush=True)
+    expect(same_result(ra, rb), 'the ranks\' tiled results differ')
+    kept_same = same_result(ra, want)
+    only = kept_difference(ra, want)
+    print(f'  (b) both ranks: {ra["num_valid"]} kept, overflow {ra["overflow"]}; phase 7 (one '
+          f'process): {want["num_valid"]} kept; bit-equal to phase 7\'s: {kept_same} (boxes '
+          f'kept only here {only[0]}, only in phase 7 {only[1]})', flush=True)
+    expect(ra['num_tiles'] == 121 and not ra['overflow'], '(b): tiles or overflow')
+    expect(kept_same, '(b): the kept set differs from phase 7\'s')
+    launches = {k: a['tiles']['launches'][k] + b['tiles']['launches'][k]
+                for k in a['tiles']['launches']}
+    print(f'  kernel launches in (b), both ranks (launches_ddp): {launches}', flush=True)
+    expect(all(n > 0 for n in launches.values()),
+           'a kernel of the multi-rank path was never launched')
+
+    # (c) distributed validation
+    va, vb = a['validate'], b['validate']
+    one = refs['val_results']
+    for ca, cb, full in zip(va['counts'], vb['counts'], one):
+        both = np.zeros_like(full['counts'])
+        both[0::2], both[1::2] = ca, cb
+        expect(np.array_equal(both, full['counts']),
+               f'(c) {full["setting"]}: the ranks\' counts differ from one process\'s')
+    print(f'  (c) validate(distributed=True) over 2 ranks, {len(one)} settings x 4 images in '
+          f'{va["seconds"]:.2f} s (rank 0): counts per image equal one process\'s; best '
+          f'{va["metrics"]["best_hparams"]} (one process {refs["val_best"]}), f1_np '
+          f'{va["metrics"]["f1_np"]:.4f}', flush=True)
+    expect(va['metrics'] == vb['metrics'], '(c): the ranks\' metrics differ')
+    expect(va['metrics']['best_hparams'] == refs['val_best'], '(c): best_hparams differ')
+
+    # (d) the CLI
+    want16, flat16 = refs['cli_result'], refs['cli_flat']
+    wa, wb = a['cli']['written'], b['cli']['written']
+    expect([w[0] for w in wa] == ['array0', 'array0'] and [w[0] for w in wb] == ['array1'],
+           f'(d) writers: rank 0 {[w[0] for w in wa]}, rank 1 {[w[0] for w in wb]}')
+    same = []
+    for label, (name, res, flat) in (('rank, input 0', wa[0]), ('rank, input 1', wb[0]),
+                                     ('job', wa[1])):
+        only = kept_difference(res, want16)
+        same.append(same_result(res, want16) and np.array_equal(flat, flat16))
+        expect(same[-1], f'(d) {label}: outputs differ from phase 16a\'s (boxes only here '
+                         f'{only[0]}, only in 16a {only[1]})')
+    print(f'  (d) cpn_inference 4096^2 fp32 b1, 2 ranks: \'rank\' (two inputs, one each) '
+          f'{a["cli"]["rank_s"]:.2f} s, \'job\' (one input, tiles split) '
+          f'{a["cli"]["job_s"]:.2f} s; writes: rank 0 {[w[0] for w in wa]}, rank 1 '
+          f'{[w[0] for w in wb]}; detections and flat labels equal phase 16a\'s (rank input 0, '
+          f'rank input 1, job): {same}', flush=True)
+    print(f'  phase 18: {time.perf_counter() - t_phase:.1f} s (the ranks {ranks_s:.1f} s: '
+          f'training {a["train_s"]:.1f} s, tiles {a["tiles_s"]:.1f} s)', flush=True)
+    check(not fails, '; '.join(fails))
+    return launches
+
+
 def score_gap(a, b):
     """The largest score difference of detections the two sides share
     (by the nearest box), for the report of a count difference."""
@@ -1958,7 +2331,7 @@ def main():
     check(all(rec[name]['ms'] is not None for name in SOURCES),
           'the profiler never saw the main path\'s NMS kernels')
     phase_tiled_card_vs_cpu(rng)
-    launches_tiled = phase_gigapixel(card, floor)
+    launches_tiled, tiles_ref = phase_gigapixel(card, floor)
     phase_card_vs_cpu(rng, 'phase 8: CpnResNeXt101UNet (full width and depth)',
                       lambda **kw: models.CpnResNeXt101UNet(in_channels=3, **FLAGSHIP, **kw),
                       tame=True)
@@ -1979,10 +2352,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, 'last.ckpt')
         phase_checkpoints(rng, card, trainer, fixed, ckpt)
-        launches_validate = phase_validate(card, fixed, ckpt, errs, floor)
+        launches_validate, val_ref = phase_validate(card, fixed, ckpt, errs, floor)
     launches_zoo = phase_zoo(rng, card, errs, floor)
-    launches_cli = phase_cli(rng, card, errs, floor)
+    launches_cli, cli_ref = phase_cli(rng, card, errs, floor)
     launches_heads = phase_heads(rng, card, errs, floor)
+    refs = {k: v for ref in (tiles_ref, val_ref, cli_ref) for k, v in ref.items() if k != 'inputs'}
+    refs['inputs'] = {k: v for ref in (tiles_ref, val_ref, cli_ref)
+                      for k, v in ref['inputs'].items()}
+    launches_ddp = phase_ddp(card, errs, refs)
     imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py',
                 'pandas', 'imageio', 'tifffile', 'PIL'} & set(sys.modules)
     check(not imported, f'{sorted(imported)} imported')
@@ -1994,6 +2371,7 @@ def main():
         'launches_resnet': launches_resnet[name], 'launches_train': launches_train[name],
         'launches_validate': launches_validate[name], 'launches_zoo': launches_zoo[name],
         'launches_cli': launches_cli[name], 'launches_heads': launches_heads[name],
+        'launches_ddp': launches_ddp[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

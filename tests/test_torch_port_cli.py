@@ -273,9 +273,13 @@ def test_unported_settings_raise(setup, tmp_path):
     kw = dict(outputs=str(tmp_path / 'x'), tile_size=TILE, stride=STRIDE)
     with pytest.raises(ValueError, match='tpu'):
         tcli.cpn_inference([image], pm, accelerator='tpu', **kw)
-    for bad in (dict(devices=2), dict(num_nodes=2)):
-        with pytest.raises(NotImplementedError, match='Queue A 6'):
-            tcli.cpn_inference([image], pm, accelerator='cpu', **bad, **kw)
+    # one process: num_nodes must be its count; devices=2 starts two ranks,
+    # one card each, and raises where fewer cards are visible
+    with pytest.raises(ValueError, match='num_nodes'):
+        tcli.cpn_inference([image], pm, accelerator='cpu', num_nodes=2, **kw)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match='rank_devices'):
+            tcli.cpn_inference([image], pm, devices=2, **kw)
     with pytest.raises(NotImplementedError, match='demo_figure'):
         tcli.cpn_inference([image], pm, accelerator='cpu', demo_figure=True, **kw)
     if not torch.cuda.is_available():

@@ -259,7 +259,7 @@ def test_norm_updates_running_statistics_with_the_biased_variance():
 
 def test_train_step_keeps_gradients_finite_and_updates():
     """make_train_step: one Adam step changes the weights, the metrics are the
-    forward's loss terms, and a mesh names the DDP slice."""
+    forward's loss terms, and a mesh needs a process group."""
     pm, _, _ = _models(seed=1)
     x, targets = _batch(seed=20)
     state = TrainState.create(pm, tconfig.conf2optimizer({'Adam': {'lr': 1e-3}}))
@@ -270,7 +270,7 @@ def test_train_step_keeps_gradients_finite_and_updates():
     assert {'loss_score', 'loss_fourier', 'loss_iou'} <= set(metrics)
     changed = [k for k, v in pm.state_dict().items() if not torch.equal(v, before[k])]
     assert len(changed) == len(before)   # every parameter and running statistic moved
-    with pytest.raises(NotImplementedError, match='DDP'):
+    with pytest.raises(RuntimeError, match='process group'):
         make_train_step(pm, state.optimizer, mesh=object())
 
 
@@ -439,6 +439,7 @@ def test_fit_adaptive_sampling_and_unported_options():
     hist = tr.fit(data, epochs=3, batch_size=2, max_instances=16, adaptive_sampling=True)
     assert len(hist) == 3 and all(np.isfinite(h['loss']) for h in hist)
     assert set(tr.gather_item_records()) <= {0, 1, 2}
-    for kw in (dict(mesh=object()), dict(log_figures_every=5)):
-        with pytest.raises(NotImplementedError):
-            TTrainer(pm, **kw)
+    with pytest.raises(RuntimeError, match='process group'):
+        TTrainer(pm, mesh=object())
+    with pytest.raises(NotImplementedError):
+        TTrainer(pm, log_figures_every=5)

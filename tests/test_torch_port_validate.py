@@ -235,8 +235,8 @@ def test_validate_metrics_exact_on_the_same_contours():
     assert 0 < results[0]['f1_np'] < 1
     tr = TTrainer(pm, val_hparams=hparams, log_fn=lambda *a: None)
     tr._predict_single = predict(tr)
-    with pytest.raises(NotImplementedError, match='DDP'):
-        tr.validate(data, distributed=True)
+    # one process: every item is this rank's and the sums are its own
+    assert tr.validate(data, iou_threshs=(0.3, 0.5, 0.7), distributed=True) == results[0]
     pm.score_thresh = 0.1
     summed = tr.validate(data, iou_threshs=(0.3, 0.5, 0.7), reduce_fn=lambda v: v,
                          calibrate=False)
