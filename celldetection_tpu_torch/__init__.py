@@ -11,5 +11,7 @@ no card and no explicit CPU request they raise. Public functions keep the
 JAX layouts: NHWC images, channels-last dense maps, ``[B, K, S, 2]`` contours.
 """
 from . import callbacks, data, kernels, models, ops, optim, parallel, runtime, util  # noqa: F401
+from .util.config import (Config, Schedule, conf2call, conf2optimizer, conf2scheduler,  # noqa: F401
+                          conf2tweaks_)
 
 __version__ = '0.1.0'

@@ -1,23 +1,40 @@
 """Host-side data: image normalisation, the CPN training-target pipeline,
-contour rendering and instance matching (numpy, scipy).
+contour rendering, instance matching, toy data, augmentations, transforms
+and datasets (numpy, scipy).
 
 Nothing here imports cv2 or scikit-image: contour tracing, the distance
-transform, the polygon fill and the dilation have numpy versions of their
-own (:mod:`.cpn`).
+transform, the polygon fill, the dilation, the drawing primitives, the
+Gaussian blur and the remap have numpy versions of their own (:mod:`.cpn`,
+:mod:`._draw`). h5py, imageio and yaml are imported only by the functions
+that read such files.
 """
+from . import augmentation, datasets, toydata, transforms
+from .augmentation import Compose, conf2augmentation
 from .cpn import (CPNTargetGenerator, chamfer_distance, clip_contour_, contours2boxes,
                   contours2fourier, contours2labels, efd, fourier2contour, labels2contours,
                   labels2distances, mask_labels_by_distance_, outer_borders, render_contour,
                   resolve_label_channels)
 from .instance_eval import LabelMatcher, LabelMatcherList, matching_labels
-from .misc import normalize_percentile, random_crop, random_pad, resample_contours
-from .segmentation import fill_label_gaps_, filter_instances_, remove_partials_
+from .misc import normalize_percentile, random_crop, random_pad, resample_contours, rgb_to_scalar
+from .segmentation import (boxes2masks, fill_label_gaps_, fill_padding_, filter_instances_,
+                           relabel_, remove_padding, remove_partials_, stack_labels,
+                           unary_masks2labels)
 from .targets import CPNTrainItem, collate_cpn_targets, cpn_targets_single
+from .toydata import (CLASS_NAMES_GEOMETRIC, random_circle, random_ellipse,
+                      random_geometric_objects, random_geometric_shapes, random_rectangle,
+                      random_triangle, synthetic_cells)
+from .transforms import BasicTransforms, Transforms
 
 __all__ = ['normalize_percentile', 'random_crop', 'random_pad', 'resample_contours',
-           'remove_partials_', 'fill_label_gaps_', 'filter_instances_', 'CPNTargetGenerator',
+           'rgb_to_scalar', 'remove_partials_', 'fill_label_gaps_', 'filter_instances_',
+           'fill_padding_', 'remove_padding', 'relabel_', 'stack_labels', 'unary_masks2labels',
+           'boxes2masks', 'CPNTargetGenerator',
            'efd', 'fourier2contour', 'labels2contours', 'contours2fourier',
            'mask_labels_by_distance_', 'labels2distances', 'outer_borders', 'chamfer_distance',
            'cpn_targets_single', 'collate_cpn_targets', 'CPNTrainItem', 'contours2boxes',
            'render_contour', 'clip_contour_', 'contours2labels', 'resolve_label_channels',
-           'LabelMatcher', 'LabelMatcherList', 'matching_labels']
+           'LabelMatcher', 'LabelMatcherList', 'matching_labels', 'random_geometric_objects',
+           'random_geometric_shapes', 'synthetic_cells', 'random_circle', 'random_ellipse',
+           'random_rectangle', 'random_triangle', 'CLASS_NAMES_GEOMETRIC', 'Compose',
+           'conf2augmentation', 'Transforms', 'BasicTransforms', 'augmentation', 'datasets',
+           'toydata', 'transforms']

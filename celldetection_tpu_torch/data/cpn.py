@@ -518,6 +518,42 @@ def _line_pixels(x0: int, y0: int, x1: int, y1: int):
     return x0 + k, y0 + sy * m
 
 
+def clip_line(width: int, height: int, p1, p2):
+    """cv2's ``clipLine`` to ``[0, width - 1] x [0, height - 1]``: ``(p1, p2,
+    inside)``, the end points as cv2 leaves them (moved onto the border, in
+    part even where the segment misses the rectangle and ``inside`` is False)."""
+    right, bottom = width - 1, height - 1
+    (x1, y1), (x2, y2) = (tuple(int(v) for v in p) for p in (p1, p2))
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (x1, y1), (x2, y2), (c1 | c2) == 0
+
+
 def _trunc_div(a: int, b: int) -> int:
     """C's integer division (toward zero)."""
     q = abs(a) // abs(b)
@@ -532,17 +568,29 @@ def _fill_polygon(img: np.ndarray, pts: np.ndarray, val):
     in 16.16 fixed point with slopes truncated toward zero, the active list
     merged by x as each edge starts and bubble-sorted (stably) after each
     row, each span from the ceiling of its left x to the floor of its right.
-    Every point must lie inside ``img``, so no line needs cv2's clipping."""
+    A point may leave the image: a line that leaves it is drawn between the
+    end points ``clip_line`` gives, and its edge takes their x (and their y
+    where they differ) while it keeps the rows of the unclipped line; rows
+    above the image are walked, not drawn."""
     h, w = img.shape
     edges = []
     px, py = (int(v) for v in pts[-1])
     for qx, qy in pts.tolist():
-        xs, ys = _line_pixels(px, py, qx, qy)
-        img[ys, xs] = val
+        (cx0, cy0), (cx1, cy1) = (px, py), (qx, qy)
+        if not (0 <= min(px, qx) and max(px, qx) < w and 0 <= min(py, qy) and max(py, qy) < h):
+            (cx0, ey0), (cx1, ey1), inside = clip_line(w, h, (px, py), (qx, qy))
+            if inside:
+                xs, ys = _line_pixels(cx0, ey0, cx1, ey1)
+                img[ys, xs] = val
+            if ey0 != ey1:
+                cy0, cy1 = ey0, ey1
+        else:
+            xs, ys = _line_pixels(px, py, qx, qy)
+            img[ys, xs] = val
         if py != qy:
-            slope = _trunc_div((qx - px) << _XY_SHIFT, qy - py)
-            top = (py, px) if py < qy else (qy, qx)
-            edges.append([top[0], max(py, qy), top[1] << _XY_SHIFT, slope])
+            slope = _trunc_div((cx1 - cx0) << _XY_SHIFT, cy1 - cy0)
+            (x, y), top = ((cx0, cy0), py) if py < qy else ((cx1, cy1), qy)
+            edges.append([top, max(py, qy), (x << _XY_SHIFT) + (top - y) * slope, slope])
         px, py = qx, qy
     if len(edges) < 2:
         return
@@ -567,7 +615,7 @@ def _fill_polygon(img: np.ndarray, pts: np.ndarray, val):
             if draw:
                 left, right = (cur, prev) if prev[2] > cur[2] else (prev, cur)
                 x0, x1 = (left[2] + one) >> _XY_SHIFT, right[2] >> _XY_SHIFT
-                if x0 < w and x1 >= 0:
+                if y >= 0 and x0 < w and x1 >= 0:
                     img[y, max(x0, 0):min(x1, w - 1) + 1] = val
                 prev[2] += prev[3]
                 cur[2] += cur[3]
@@ -581,8 +629,9 @@ def render_contour(contour, val=1, dtype='int32', round=False, reference=None, t
 
     The fill is ``cv2.drawContours(thickness=-1)``'s, pixel for pixel
     (:func:`_fill_polygon`), of the points truncated to int32 as the JAX
-    package passes them. Only filled contours (``thickness=-1``) are
-    implemented, and ``reference`` must bound the contour.
+    package passes them, clipped to the crop as cv2 clips (``reference``
+    need not bound the contour). Only filled contours (``thickness=-1``)
+    are implemented.
     """
     if thickness != -1:
         raise NotImplementedError(f'thickness={thickness}: the port implements only filled '
@@ -595,9 +644,6 @@ def render_contour(contour, val=1, dtype='int32', round=False, reference=None, t
     pts = np.asarray(pts, dtype=np.int32).reshape((-1, 2)) - np.array([xmin, ymin], np.int32)
     crop = np.zeros((ymax - ymin + 1, xmax - xmin + 1), dtype=dtype)
     if len(pts):
-        if (pts < 0).any() or (pts >= np.array(crop.shape[::-1])).any():
-            raise NotImplementedError('reference does not bound the contour: cv2 clips such '
-                                      'lines, which the port does not implement')
         _fill_polygon(crop, pts, val)
     return crop, (xmin, xmax), (ymin, ymax)
 

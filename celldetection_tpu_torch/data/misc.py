@@ -3,7 +3,8 @@
 Counterpart of ``celldetection_tpu/data/misc.py``: ``normalize_percentile``
 (79-100), ``random_crop`` (103-111), ``random_pad`` (114-124),
 ``resample_contours`` (143-179), ``labels2properties`` (195-225),
-``regionprops2d`` (228-238) and ``labels2property_table`` (254-299), copied
+``rgb_to_scalar`` (137-140), ``regionprops2d`` (228-238) and
+``labels2property_table`` (254-299), copied
 so that the port imports nothing of the JAX package. The JAX package's
 property table is a ``pandas.DataFrame``; the port's is a
 :class:`PropertyTable` of the same columns and rows, written as pandas'
@@ -16,6 +17,7 @@ from typing import Union
 import numpy as np
 
 __all__ = ['normalize_percentile', 'random_crop', 'random_pad', 'resample_contours',
+           'rgb_to_scalar',
            'labels2properties', 'regionprops2d', 'labels2property_table', 'PropertyTable']
 
 
@@ -64,6 +66,12 @@ def random_pad(*arrays, height: int, width: int = None, rng: np.random.RandomSta
     out = tuple(np.pad(a, [(ty, ph - ty), (tx, pw - tx)] + [(0, 0)] * (a.ndim - 2), **kwargs)
                 for a in arrays)
     return out if len(out) > 1 else out[0]
+
+
+def rgb_to_scalar(image: np.ndarray, dtype='int32') -> np.ndarray:
+    """Pack an RGB label encoding ``[..., 3]`` into scalar labels ``r + g << 8 + b << 16``."""
+    image = image.astype(dtype)
+    return image[..., 0] + (image[..., 1] << 8) + (image[..., 2] << 16)
 
 
 def resample_contours(contours, num: Union[int, float, None] = None, close: bool = True,

@@ -4,7 +4,10 @@ Counterpart of ``celldetection_tpu/models/resnet.py``: ``BasicBlock`` (33-56),
 ``Bottleneck`` (59-98), ``_ResLayer`` (101-124), ``ResNetEncoder`` (127-198),
 the ten constructors (210-219), the torchvision spellings (222-226) and
 ``get_resnet`` (240-254); ``pyramid_pooling`` appends a :class:`.ppm.Ppm`
-(``body.ppm``) to the deepest level.
+(``body.ppm``) to the deepest level, and ``secondary_block`` (a module
+class such as :class:`.mamba.MambaLayer`, built as
+``secondary_block(channels)``) follows each stage's layer as
+``body.secondary1..4``.
 
 The JAX package's ``GroupedConv`` (a block-diagonal dense conv, a TPU
 lowering choice) is a plain ``nn.Conv2d(groups=...)`` here, with the same
@@ -111,9 +114,6 @@ class ResNetEncoder(nn.Sequential):
                  initial_pooling: bool = True, norm_layer: str = 'batchnorm2d',
                  secondary_block=None, pyramid_pooling: bool = False,
                  pyramid_pooling_channels: int = 64):
-        if secondary_block is not None:
-            raise NotImplementedError('ResNetEncoder secondary_block (MambaLayer) is not ported '
-                                      'yet')
         block = Bottleneck if bottleneck else BasicBlock
         stem = [nn.Conv2d(in_channels, base_channel, 7, stride=initial_strides, padding=3,
                           bias=False),
@@ -135,6 +135,12 @@ class ResNetEncoder(nn.Sequential):
         self.out_channels = ([] if fused_initial else [base_channel]) + \
             [base_channel * 2 ** i * e for i in range(4)]
         self.out_strides = ([] if fused_initial else [2]) + [4, 8, 16, 32]
+        # one secondary block after each stage's layer (``secondary1..4``), as
+        # the JAX package applies it, not inside the layer as the reference does
+        self.secondary = None if secondary_block is None else [
+            f'secondary{i + 1}' for i in range(len(layers))]
+        for i, name in enumerate(self.secondary or ()):
+            setattr(self, name, secondary_block(base_channel * 2 ** i * e))
         self.ppm = None
         if pyramid_pooling:
             self.ppm = Ppm(self.out_channels[-1], pyramid_pooling_channels)
@@ -146,6 +152,9 @@ class ResNetEncoder(nn.Sequential):
         features = {}
         for i in range(self.num_stages):
             x = self[i](x)
+            layer = i if self.fused_initial else i - 1       # the stage's ResNet layer - 1
+            if self.secondary is not None and layer >= 0:
+                x = getattr(self, self.secondary[layer])(x)
             features[str(i)] = x
         if self.ppm is not None:
             features[str(self.num_stages - 1)] = self.ppm(x)

@@ -74,12 +74,15 @@ class GeneralizedUNet(nn.Module):
     2x-upsampled top-down map. The output keys are the encoder's, finest
     first, so with bridges ``'0'`` names the stride-1 level and the deepest
     decoder level has no key (``zip`` truncates, as in the JAX package).
+    ``secondary_block`` (a module class, built as ``secondary_block(channels)``)
+    follows each decoder level's block as ``secondary{i}``.
     """
 
     def __init__(self, in_channels_list: Sequence[int], out_channels: int = 0, block_cls=None,
                  block_kwargs: Optional[dict] = None, final_activation=None,
                  interpolate: str = 'nearest', in_strides_list: Optional[Sequence[int]] = None,
-                 out_channels_list: Optional[Sequence[int]] = None, keep_features: bool = True):
+                 out_channels_list: Optional[Sequence[int]] = None, keep_features: bool = True,
+                 secondary_block=None):
         super().__init__()
         block_cls = block_cls or TwoConvNormRelu
         block_kwargs = block_kwargs or {}
@@ -109,6 +112,11 @@ class GeneralizedUNet(nn.Module):
             else:
                 self.layer_blocks[str(i)] = TwoConvNormRelu(top_down, out_list[i],
                                                             use_bias=False, **bridge_kwargs)
+        # a secondary block (e.g. MambaLayer) after each decoder level: ``secondary{i}``
+        self.secondary = None if secondary_block is None else \
+            {i: f'secondary{i}' for i in range(depth)}
+        for i, name in (self.secondary or {}).items():
+            setattr(self, name, secondary_block(out_list[i]))
         self.out_layer = nn.Conv2d(out_list[0], out_channels, 1) if out_channels > 0 else None
         self.final_activation = None if final_activation is None else \
             get_activation(final_activation)
@@ -129,6 +137,8 @@ class GeneralizedUNet(nn.Module):
             top_down = interpolate_nchw(top_down, t_size, mode)
             block_in = top_down if lateral is None else torch.cat([lateral, top_down], 1)
             last_inner = self.layer_blocks[str(i)](block_in)
+            if self.secondary is not None:
+                last_inner = getattr(self, self.secondary[i])(last_inner)
             results.insert(0, last_inner)
         final = results[0] if size is None else interpolate_nchw(last_inner, size, 'bilinear')
         if self.out_layer is not None:

@@ -4,6 +4,7 @@ from .boxes import (box_area, box_iou, filter_by_box_voting, get_iou_voting, nms
                     remove_small_boxes_mask)
 from .commons import (clip, downsample_labels, equal_size, interpolate_nchw, process_scores,
                       resize_bilinear, resize_nearest)
+from .normalization import pixel_norm
 from .cpn import (batched_box_nms, filter_contours_by_stitching_rule, fourier_basis,
                   fouriers2contours, get_scale, order_weighting, refinement_bucket_weight,
                   rel_location2abs_location, remove_border_contours, resolve_refinement_buckets,
@@ -16,4 +17,4 @@ __all__ = ['box_area', 'box_iou', 'nms_padded', 'nms_chunked', 'nms_indices',
            'interpolate_nchw', 'process_scores', 'resize_bilinear', 'resize_nearest',
            'batched_box_nms', 'fourier_basis', 'fouriers2contours', 'get_scale',
            'rel_location2abs_location', 'scale_contours', 'scale_fourier',
-           'remove_border_contours', 'filter_contours_by_stitching_rule']
+           'remove_border_contours', 'filter_contours_by_stitching_rule', 'pixel_norm']

@@ -9,11 +9,15 @@ cross in both directions: one the JAX package's ``save_model`` wrote loads
 here, and one written here loads in the JAX package's ``load_model``. The
 msgpack is the port's own (:mod:`._msgpack`): neither msgpack nor flax is
 needed. ``.pt`` and ``.ckpt`` files go to :func:`.torch_import.load_torch_cd_model`.
+A ``secondary_block`` in ``backbone_kwargs`` is written as ``str(cls)``, as
+the JAX package writes it; the port rebuilds ``MambaLayer`` from such a file
+of either package (the JAX package's ``load_model`` cannot).
 """
 import hashlib
 import inspect
 import json
 import os
+import re
 from typing import Optional
 
 import numpy as np
@@ -69,6 +73,9 @@ def build_cpn(name, kwargs: dict, **defaults):
         name = getattr(name, '__name__', str(name))
     in_channels = kwargs.pop('in_channels')
     backbone_kwargs = kwargs.pop('backbone_kwargs', None)
+    if isinstance((backbone_kwargs or {}).get('secondary_block'), str):
+        backbone_kwargs = dict(backbone_kwargs,
+                               secondary_block=_secondary_block(backbone_kwargs['secondary_block']))
     ctor = get_cpn(name)
     known = set()
     for fn in (ctor, _make_cpn, CPN.__init__):
@@ -82,6 +89,17 @@ def build_cpn(name, kwargs: dict, **defaults):
         elif v is not None and v is not False:
             raise NotImplementedError(f'{name}: the option {k}={v!r} is not ported yet')
     return ctor(in_channels, backbone_kwargs=backbone_kwargs, **accepted)
+
+
+def _secondary_block(stored: str):
+    """The module class of a ``secondary_block`` that a file stores as ``str(cls)``,
+    as both packages write it: ``MambaLayer`` of either package is the
+    port's :class:`..models.mamba.MambaLayer` (the JAX package cannot rebuild
+    its own such files); anything else (a ``functools.partial``) raises."""
+    from ..models.mamba import MambaLayer
+    if re.fullmatch(r"(<class '[\w.]*\.models\.mamba\.)?MambaLayer('>)?", stored):
+        return MambaLayer
+    raise ValueError(f'cannot rebuild the secondary_block {stored!r} stored in the file')
 
 
 def dict2model(d: dict, **overrides):

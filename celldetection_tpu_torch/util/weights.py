@@ -16,7 +16,11 @@ kernels HWIO → OIHW, a depthwise ``[7, 7, 1, C]`` → ``[C, 1, 7, 7]``;
 ``Dense`` kernels ``[in, out]`` → ``nn.Linear``'s ``[out, in]``; norm
 ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/``running_mean``/
 ``running_var``; ``layer_scale``, GRN's ``gamma``/``beta`` and the PAB's
-``beta`` as they are) under the keys the port's modules carry, so
+``beta`` as they are; a Mamba's ``conv1d`` kernel ``[d_conv, 1, C]`` →
+``Conv1d``'s ``[C, 1, d_conv]``, its ``A_log`` and ``D`` as they are; a
+trainable ``Filter2d``'s ``kernel`` (:func:`_is_filter`) as it is; the
+secondary blocks of a ResNet body or a U-Net decoder, ``secondary{i}``, under
+their flax paths) under the keys the port's modules carry, so
 ``load_state_dict(..., strict=True)`` takes it.
 ``jax_variables_from_state_dict`` is its inverse (OIHW back to HWIO), the
 tree that flax's ``from_bytes`` restores into a JAX model.
@@ -53,6 +57,14 @@ _FLAX_LEAVES = {'kernel': 'weight', 'scale': 'weight', 'mean': 'running_mean',
                 'var': 'running_var'}
 
 
+def _is_filter(path: Tuple[str, ...]) -> bool:
+    """The ``kernel`` of a trainable ``Filter2d``, ``[kh, kw]`` or ``[num, kh, kw]``
+    in both packages: a module that flax names ``Filter2d_<i>`` (the class's
+    name when its parent gives none) or ``module`` (``UpFilter2d``'s field);
+    no convolution or ``Dense`` of the JAX package carries either name."""
+    return path[-1] == 'kernel' and re.fullmatch(r'Filter2d_\d+|module', path[-2]) is not None
+
+
 def _flax_key(path: Tuple[str, ...]) -> str:
     """A later family's key: the flax path joined by dots, with the torch leaf name."""
     return 'core.' + '.'.join(path[:-1] + (_FLAX_LEAVES.get(path[-1], path[-1]),))
@@ -68,7 +80,8 @@ def _flax_path(key: str) -> Tuple[str, Tuple[str, ...], bool]:
         leaf = 'scale' if is_norm else 'kernel'
     coll = 'batch_stats' if leaf in ('running_mean', 'running_var') else 'params'
     leaf = {'running_mean': 'mean', 'running_var': 'var'}.get(leaf, leaf)
-    return coll, tuple(parts[:-1]) + (leaf,), leaf == 'kernel'
+    path = tuple(parts[:-1]) + (leaf,)
+    return coll, path, leaf == 'kernel' and not _is_filter(path)
 
 
 def _two_conv_suffix(coll: str, p) -> str:
@@ -103,6 +116,8 @@ def _port_key(coll: str, path: Tuple[str, ...], fused_initial: bool = False) -> 
         if p[1] == 'norm':
             return f'core.{p[0]}.block.1.{_NORM_LEAVES[(coll, p[-1])]}'
     elif p[:2] == ['backbone', 'unet']:
+        if p[2].startswith('secondary'):
+            return _flax_key(path)
         m = re.fullmatch(r'(inner|layer)(\d+)', p[2])
         if m and m.group(1) == 'inner':
             return f'core.backbone.unet.inner_blocks.{int(m.group(2)) - 1}.{conv_leaf}'
@@ -186,7 +201,7 @@ def _jax_path(key: str, encoder: str = 'unet',
     m = re.fullmatch(r'core\.backbone\.unet\.inner_blocks\.(\d+)\.(weight|bias)', key)
     if m:
         return conv(('backbone', 'unet', f'inner{int(m.group(1)) + 1}'), m.group(2))
-    if re.fullmatch(r'core\.backbone\.(body\.[a-z]\w*|decoder)\..*', key):
+    if re.fullmatch(r'core\.backbone\.(body\.[A-Za-z]\w*|decoder|unet\.secondary\d+)\..*', key):
         return _flax_path(key)
     m = re.fullmatch(r'core\.backbone\.unet\.layer_blocks\.(\d+)\.([0134]|downsample\.[01])'
                      r'\.(\w+)', key)
@@ -236,10 +251,11 @@ def state_dict_from_jax(variables, fused_initial: bool = False) -> Dict[str, tor
         for path, v in _flatten(tree):
             key = _port_key(coll, path, fused_initial)
             t = torch.from_numpy(np.array(v))   # an owned copy
-            if path[-1] == 'kernel':
-                # HWIO -> OIHW ([in, out] -> [out, in] for a Dense), in torch:
-                # a threaded copy, where numpy's is not
-                t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()).contiguous()
+            if path[-1] == 'kernel' and not _is_filter(path):
+                # HWIO -> OIHW (WIO -> OIW for a 1-D conv, [in, out] -> [out,
+                # in] for a Dense), in torch: a threaded copy, where numpy's is not
+                t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.permute(2, 1, 0) if t.dim() == 3
+                     else t.t()).contiguous()
             out[key] = t
     return out
 
@@ -291,8 +307,9 @@ def jax_variables_from_state_dict(state_dict, fused_initial: bool = False,
     for key, t in state_dict.items():
         coll, path, is_kernel = _jax_path(key, encoder, fused_initial)
         t = torch.as_tensor(t).detach()
-        if is_kernel:   # OIHW -> HWIO ([out, in] -> [in, out]), on the tensor's device
-            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+        if is_kernel:   # OIHW -> HWIO (OIW -> WIO, [out, in] -> [in, out]), on the tensor's device
+            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.permute(2, 1, 0) if t.dim() == 3 \
+                else t.t()
         _set_path(variables.setdefault(coll, {}), path, t.contiguous().cpu().numpy())
     return variables
 
@@ -318,8 +335,12 @@ def init_jax_variables(model: torch.nn.Module, seed: int = 0) -> dict:
         if is_kernel:
             o, i = shape[:2]
             bound = np.sqrt(6.0 / (i * int(np.prod(shape[2:], dtype=np.int64))))
-            hwio = shape[2:] + (i, o) if len(shape) == 4 else (i, o)
+            hwio = shape[2:] + (i, o) if len(shape) >= 3 else (i, o)
             v = rng.uniform(-bound, bound, hwio)
+        elif path[-1] == 'A_log':   # a Mamba's state decay: flax's init, perturbed
+            v = np.log(np.arange(1, shape[1] + 1)) + 0.1 * rng.randn(*shape)
+        elif path[-1] == 'D':
+            v = rng.uniform(0.5, 1.5, shape)
         elif path[-1] in ('scale', 'var'):
             v = rng.uniform(0.5, 1.5, shape)
         elif path[-1] == 'layer_scale':

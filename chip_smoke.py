@@ -110,7 +110,24 @@ Phases, in order; any failure exits non-zero:
      on both ranks and against phase 7's; (c) ``validate(distributed=True)``
      on phase 13's images against phase 13; (d) ``cpn_inference`` on phase
      16's mosaic under ``'rank'`` and ``'job'`` against 16a's outputs, one
-     writer an input.
+     writer an input;
+ 19. the demos' recipes and the Mamba path on the port's own modules:
+     (a) the binary demo: ``Config``, ``SynthTrain`` (64 images of 256^2)
+     through ``conf2augmentation`` with the elastic warp, ``CPNTrainer.fit``
+     of full-width CpnU22 at batch 8 (one warm-up epoch, two timed: imgs/s
+     end to end, host ms a batch in augmentation and in targets, peak
+     memory), then ``TiledInference`` on a 768^2 ``random_geometric_objects``
+     mosaic with every NMS call held against the plain versions (the kernel
+     launches of that run are ``launches_demo``); (b) the multiclass demo:
+     ``random_geometric_shapes``, 4 classes, 6 refinement buckets,
+     ``conf2tweaks_`` of the norms' momentum to 0.05 after the trainer is
+     built, Adadelta with ``StepLR``, and the running statistics of one step
+     against flax's update worked out on the card; (c) ``selective_scan``
+     against a float64 sequential scan, then full-width CpnResNet50UNet with
+     a ``MambaLayer`` after every stage card against CPU at 256^2 and on
+     512^2 tiles as phase 5 (fp32 batch 1, bf16 batch 4; the kernel launches
+     of that run are ``launches_mamba``), with the scan's share of the
+     forward.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -136,7 +153,11 @@ from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_block
                                                _suppression_counts, _suppression_matrix,
                                                _suppression_pairs, box_iou, nms_chunked,
                                                nms_padded, sort_by_score)
-from celldetection_tpu_torch.data import collate_cpn_targets, contours2labels, cpn_targets_single
+from celldetection_tpu_torch.data import (collate_cpn_targets, conf2augmentation, contours2labels,
+                                          cpn_targets_single, random_geometric_objects,
+                                          random_geometric_shapes)
+from celldetection_tpu_torch.data.datasets import SynthTrain
+from celldetection_tpu_torch.models import mamba
 from celldetection_tpu_torch.native import contours2labels_native, rasterize_library
 from celldetection_tpu_torch.parallel.tiles import TiledInference, tile_image
 from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
@@ -469,6 +490,7 @@ def random_weights(model, tame=False, score=1., fourier=1.):
     block by block until the score sigmoid saturates at exactly 1 (no
     threshold gap, no ranking): the last norm of every residual branch (a
     ResNet block's, a MobileNetV3 block's ``project_bn``) is scaled by 0.1,
+    a secondary ``MambaLayer``'s output projection by 0.01,
     the score head's output layer by 0.25 and the refinement head's by 0.01
     (its logits would otherwise saturate ``3 tanh``).
     ``score``, ``fourier``: further factors on those heads' output layers.
@@ -484,6 +506,8 @@ def random_weights(model, tame=False, score=1., fourier=1.):
             elif layer.startswith('block') and 'project_bn' in blocks:
                 last = blocks['project_bn']['norm']
                 last.update({k: v * np.float32(0.1) for k, v in last.items()})
+            elif layer.startswith('secondary'):      # a Mamba's scan sums thousands of tokens
+                blocks['mamba']['out_proj']['kernel'] *= np.float32(0.01)
         score *= 0.25
         params['refinement_head']['conv1']['kernel'] *= np.float32(0.01)
         params['refinement_head']['conv1']['bias'] *= np.float32(0.01)
@@ -706,11 +730,11 @@ def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 20
 
 
 def main_path(rng, card, errs, floor, title, build, tame=False,
-              runs=(('fp32', None, 1), ('bf16', torch.bfloat16, 4)), score=1.):
-    """Phases 5, 9 and 15: the model ``build(compute_dtype=...)`` makes on
-    1024^2 tiles in each of ``runs`` (name, compute dtype, batch), with
+              runs=(('fp32', None, 1), ('bf16', torch.bfloat16, 4)), score=1., size=TILE):
+    """Phases 5, 9, 15 and 19c: the model ``build(compute_dtype=...)`` makes on
+    ``size``^2 tiles in each of ``runs`` (name, compute dtype, batch), with
     ``random_weights(tame, score)``."""
-    print(f'== {title} on 1024^2 tiles', flush=True)
+    print(f'== {title} on {size}^2 tiles', flush=True)
     torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
     torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's default for matmuls
     print('  fp32 convolutions in TF32 (cudnn.allow_tf32=True, the PyTorch default)', flush=True)
@@ -721,7 +745,7 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
         if sd is None:
             sd = random_weights(m, tame, score)
         m.load_state_dict(sd, strict=True)
-        x = torch.from_numpy(rng.rand(batch, TILE, TILE, 3).astype(np.float32)).cuda()
+        x = torch.from_numpy(rng.rand(batch, size, size, 3).astype(np.float32)).cuda()
         # score threshold from this configuration's own scores: at least
         # 3072 foreground pixels per image, so the NMS sees 2048 valid boxes
         # (with more than two classes the classes are the argmax and the
@@ -1127,8 +1151,8 @@ def phase_tiled_flagship(card):
 
 def disk_images(n, size, seed, num=24, radius=(6, 14)):
     """``n`` training pairs ``(image [size, size, 1], labels [size, size, 1])``
-    drawn with numpy, as ``data.random_geometric_objects`` draws them in the
-    JAX package (which needs cv2): up to ``num`` non-overlapping disks of
+    drawn with numpy (phase 11b's workload since before the port had
+    ``data.random_geometric_objects``, which phase 19a uses): up to ``num`` non-overlapping disks of
     radius ``radius`` (a disk that would overlap one already placed is left
     out), intensity 0.4-0.9, noise 0.03."""
     rng = np.random.RandomState(seed)
@@ -2288,6 +2312,262 @@ def phase_ddp(card, errs, refs):
     return launches
 
 
+DEMO_AUG = {'HorizontalFlip': {'p': .5}, 'VerticalFlip': {'p': .5}, 'RandomRotate90': {'p': .5},
+            'RandomBrightnessContrast': {'p': .3}, 'ElasticTransform': {'p': .3}}
+
+
+class AugmentedData:
+    """The demos' dataset: items of ``items`` through ``augment`` (numpy's
+    global ``RandomState``, as the demos draw it), with the host time spent in
+    the augmentation."""
+
+    def __init__(self, items, augment):
+        self.items, self.augment, self.seconds = items, augment, 0.
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        item = self.items[i]
+        t0 = time.perf_counter()
+        image, labels = self.augment(item[0], item[1])
+        self.seconds += time.perf_counter() - t0
+        return (image, labels) + tuple(item[2:])
+
+
+def phase_demo_binary(card, errs, floor):
+    """Phase 19a: the binary demo's recipe (demos/demo-binary-tpu.ipynb) on the
+    port's own modules: ``Config``, ``conf2augmentation`` with the elastic
+    warp, ``SynthTrain``, ``CPNTrainer.fit`` of full-width CpnU22 and
+    ``TiledInference`` on a ``random_geometric_objects`` mosaic, every NMS
+    call held against the plain versions. Returns the NMS kernels' launches
+    of the tiled run."""
+    conf = ct.Config(in_channels=1, cpn='CpnU22', order=5, samples=32, max_detections=128,
+                     score_thresh=.9, nms_thresh=.5, batch_size=8, crop_size=256, images=64,
+                     optimizer={'Adam': {'lr': 2e-3}}, augmentation=DEMO_AUG)
+    print(f'== phase 19a: the binary demo\'s recipe, {conf.cpn} (full width), config '
+          f'{conf.hash()}: SynthTrain(n={conf.images}, 256^2, num=24, radius=(6, 14)) through '
+          f'conf2augmentation({list(conf.augmentation)}), batch {conf.batch_size}, Adam 2e-3',
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    synth = SynthTrain(n=conf.images, height=conf.crop_size, width=conf.crop_size, num=24,
+                       radius=(6, 14))
+    synth_s = time.perf_counter() - t0
+    np.random.seed(SEED)
+    train = AugmentedData(synth.items, conf2augmentation(conf.augmentation))
+    model = getattr(models, conf.cpn)(in_channels=conf.in_channels, order=conf.order,
+                                      samples=conf.samples, max_detections=conf.max_detections,
+                                      nms_thresh=conf.nms_thresh, score_thresh=conf.score_thresh)
+    trainer = CPNTrainer(model, optimizer=conf.optimizer, log_fn=lambda *a: None, seed=SEED)
+    fit = dict(batch_size=conf.batch_size, crop_size=conf.crop_size, max_instances=32)
+    t0 = time.perf_counter()
+    trainer.fit(train, epochs=1, **fit)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    epochs, batches = 2, 2 * (-(-conf.images // conf.batch_size))
+    train.seconds = 0.
+    t0 = time.perf_counter()
+    hist = trainer.fit(train, epochs=epochs, **fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    aug_ms = train.seconds / batches * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = hist[-epochs:]                 # the trainer's history holds the warm-up epoch too
+    check(len(hist) == epochs and all(np.isfinite(h['loss']) for h in hist), 'fit: bad history')
+    train.seconds = 0.
+    t0 = time.perf_counter()
+    for j in range(4):                                        # the host's part alone
+        trainer._make_batch(train, np.arange(8) + 8 * j, conf.samples, conf.order, 32,
+                            np.random.RandomState(j), crop_size=conf.crop_size)
+    made_ms = (time.perf_counter() - t0) / 4 * 1e3
+    target_ms = made_ms - train.seconds / 4 * 1e3
+    n_imgs = batches * conf.batch_size
+    print(f'  [{card}] end to end {n_imgs / wall:.3f} imgs/s ({epochs} epochs, {n_imgs} images '
+          f'in {wall:.3f} s; warm-up epoch {warm_s:.1f} s); host ms a batch: augmentation '
+          f'{aug_ms:.1f} (in fit), targets {target_ms:.1f} (alone); SynthTrain made in '
+          f'{synth_s:.2f} s; peak memory {peak:.2f} GiB; losses by epoch '
+          f'{[round(h["loss"], 3) for h in hist]}', flush=True)
+
+    mosaic, _ = random_geometric_objects(3 * conf.crop_size, 3 * conf.crop_size, num=50,
+                                         radius=(6, 14), seed=9999)
+    tiled = TiledInference(model, tile_size=conf.crop_size, stride=conf.crop_size * 3 // 4)
+    # the briefly trained model's scores sit below the demo's 0.9: the
+    # threshold leaves at least 512 pixels of the mosaic's first tile above it
+    x = torch.from_numpy(mosaic[None, :conf.crop_size, :conf.crop_size, None].copy()).cuda()
+    probs = torch.sigmoid(model.forward_padded(x, nms=False)['dense_scores'].float())
+    thresh = min(conf.score_thresh, threshold_above(probs, 512))
+    reset_launches()
+    with SweepRecorder() as rec:
+        rec.label = '19a mosaic'
+        t0 = time.perf_counter()
+        res = tiled(mosaic.astype(np.float32), score_thresh=thresh)
+        torch.cuda.synchronize()
+        tiled_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f'  [{card}] TiledInference on the {mosaic.shape[0]}^2 mosaic (tile 256, stride 192, '
+          f'threshold {thresh:.4f}): {res["num_tiles"]} tiles, {len(res["contours"])} detections '
+          f'in {tiled_s:.3f} s; NMS kernel launches {launches}', flush=True)
+    check(all(n > 0 for n in launches.values()), '19a: the tiled run launched no NMS kernel')
+    check(len(res['contours']) > 0 and np.isfinite(res['contours']).all(), '19a: bad detections')
+    hold_recorded(rec.calls, errs, card, floor,
+                  {c[0]: f'NMS call {c[0][1]}' for c in rec.calls}, timed=[rec.calls[0][0]])
+    return launches
+
+
+def phase_demo_multiclass(card):
+    """Phase 19b: the multiclass demo's recipe (demos/demo-multiclass-tpu.ipynb):
+    ``random_geometric_shapes``, CpnU22 with 4 classes and 6 refinement
+    buckets, ``conf2tweaks_`` of the batch norms' momentum, Adadelta with
+    ``StepLR``; the running statistics of one step against flax's update
+    worked out on the card from the same batch."""
+    conf = ct.Config(in_channels=3, classes=4, cpn='CpnU22', order=7, samples=128,
+                     max_detections=256, nms_thresh=.5, contour_head_stride=2,
+                     refinement_iterations=3, refinement_buckets=6,
+                     tweaks={'BatchNorm2d': {'momentum': 0.05}},
+                     optimizer={'Adadelta': {'lr': 1., 'rho': 0.9}},
+                     scheduler={'StepLR': {'step_size': 5, 'gamma': .99}}, batch_size=8, size=256,
+                     augmentation={'Transpose': {'p': 0.5}, 'RandomRotate90': {'p': 0.5}})
+    print(f'== phase 19b: the multiclass demo\'s recipe, {conf.cpn} (full width), classes '
+          f'{conf.classes}, refinement buckets {conf.refinement_buckets}, tweaks {conf.tweaks}, '
+          f'Adadelta with StepLR, {conf.size}^2 shapes', flush=True)
+    items = []
+    for i in range(16):
+        image, _, labels, classes = random_geometric_shapes(conf.size, conf.size, seed=i)
+        items.append((image.astype(np.float32) / 255., labels, classes))
+    np.random.seed(SEED)
+    train = AugmentedData(items, conf2augmentation(conf.augmentation))
+    model = getattr(models, conf.cpn)(
+        in_channels=conf.in_channels, order=conf.order, samples=conf.samples, classes=conf.classes,
+        nms_thresh=conf.nms_thresh, contour_head_stride=conf.contour_head_stride,
+        refinement_iterations=conf.refinement_iterations,
+        refinement_buckets=conf.refinement_buckets, max_detections=conf.max_detections)
+    trainer = CPNTrainer(model, optimizer=conf.optimizer,
+                         scheduler=ct.conf2scheduler(conf.scheduler), log_fn=lambda *a: None,
+                         seed=SEED)
+    ct.conf2tweaks_(conf.tweaks, model)                       # after the trainer, as a user may
+    norms = [m for m in model.modules() if isinstance(m, models.Norm) and
+             m.kind.startswith('batchnorm')]
+    check(norms and all(abs(m.momentum - 0.95) < 1e-12 for m in norms),
+          '19b: the tweak missed a norm')
+    t0 = time.perf_counter()
+    hist = trainer.fit(train, epochs=1, batch_size=conf.batch_size, max_instances=64,
+                       crop_size=conf.size)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(np.isfinite(hist[-1]['loss']), '19b: the loss is not finite')
+
+    batch = trainer._make_batch(train, np.arange(conf.batch_size), conf.samples, conf.order, 64,
+                                np.random.RandomState(1), crop_size=conf.size)
+    stats, hooks = {}, []
+    for m in norms:
+        def hook(mod, inputs):
+            x = inputs[0].detach().double()
+            mean = x.mean((0, 2, 3))
+            stats[mod] = (mod.running_mean.double().clone(), mod.running_var.double().clone(),
+                          mean, (x.square().mean((0, 2, 3)) - mean.square()).clamp(min=0),
+                          float(x.square().mean((0, 2, 3)).max()))
+        hooks.append(m.register_forward_pre_hook(hook))
+    trainer._step_fn(trainer.state, batch, trainer.generator)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    worst = worst_untweaked = 0.
+    for m in norms:
+        old_mean, old_var, mean, var, scale = stats[m]
+        tol = 1e-5 * max(1., scale)
+        err = max(float((m.running_mean.double() - (0.95 * old_mean + 0.05 * mean)).abs().max()),
+                  float((m.running_var.double() - (0.95 * old_var + 0.05 * var)).abs().max()))
+        worst = max(worst, err / tol)
+        worst_untweaked = max(worst_untweaked, float(
+            (m.running_var.double() - (0.9 * old_var + 0.1 * var)).abs().max()) / tol)
+    print(f'  [{card}] fit: {len(items)} images in {fit_s:.2f} s, loss {hist[-1]["loss"]:.3f}; '
+          f'one more step: the running statistics of {len(norms)} batch norms against flax\'s '
+          f'update with momentum 0.95 (torch 0.05) from the same batch, worked out in float64 on '
+          f'the card: worst |diff| / tol {worst:.3e} (tol 1e-5 of the largest E[x^2], at least '
+          f'1e-5); against the untweaked 0.9: {worst_untweaked:.3e}', flush=True)
+    check(worst <= 1., '19b: the running statistics do not follow the tweaked momentum')
+    check(worst_untweaked > 1., '19b: the tweak did not change the running statistics')
+
+
+def scan_share(card, build, runs, size, rng):
+    """The Mamba scan's share of ``forward_padded(nms=True)``: CUDA events
+    around every ``selective_scan`` call against events around the forward."""
+    original = mamba.selective_scan
+    for name, dtype, batch in runs:
+        m = build(compute_dtype=dtype)
+        m.load_state_dict(random_weights(m, tame=True), strict=True)
+        x = torch.from_numpy(rng.rand(batch, size, size, 3).astype(np.float32)).cuda()
+        spans = []
+
+        def timed(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = original(*args)
+            b.record()
+            spans.append((a, b))
+            return y
+
+        m.forward_padded(x)
+        mamba.selective_scan = timed
+        try:
+            total = []
+            for _ in range(3):
+                spans.clear()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                m.forward_padded(x)
+                b.record()
+                torch.cuda.synchronize()
+                total.append((a.elapsed_time(b), sum(s.elapsed_time(e) for s, e in spans)))
+        finally:
+            mamba.selective_scan = original
+        fwd, scan = sorted(total)[1]
+        print(f'  [{card}] {name} batch {batch} at {size}^2: forward_padded(nms=True) {fwd:.2f} '
+              f'ms, the {len(spans)} selective_scan calls {scan:.2f} ms, share {scan / fwd:.3f} '
+              f'(CUDA events, median of 3)', flush=True)
+        del m, x
+        torch.cuda.empty_cache()
+
+
+def phase_mamba(rng, card, errs, floor):
+    """Phase 19c: CpnResNet50UNet with a ``MambaLayer`` secondary block after
+    every stage, full width: the scan on the card against a float64
+    sequential scan, card against CPU at 256^2, the main path on 512^2 tiles
+    (fp32 batch 1, bf16 batch 4) and the scan's share of the forward.
+    Returns the NMS kernels' launches of the main path."""
+    print('== phase 19c: selective_scan on the card against a float64 sequential scan', flush=True)
+    g = np.random.RandomState(SEED)
+    B, L, D, N = 2, 1003, 8, 16
+    u, delta = g.randn(B, L, D), np.abs(g.randn(B, L, D)) * 0.1 + 0.01
+    A, Bm, Cm, Dp = -(np.abs(g.randn(D, N)) + 0.1), g.randn(B, L, N), g.randn(B, L, N), g.randn(D)
+    args = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (u, delta, A, Bm, Cm, Dp)]
+    got = mamba.selective_scan(*args).cpu().numpy()
+    x, ys = np.zeros((B, D, N)), []
+    for t in range(L):
+        x = np.exp(delta[:, t, :, None] * A) * x + delta[:, t, :, None] * Bm[:, t, None, :] * \
+            u[:, t, :, None]
+        ys.append(np.einsum('bn,bdn->bd', Cm[:, t], x))
+    want = np.stack(ys, 1) + u * Dp
+    err = float(np.max(np.abs(got - want) / (1e-5 + 1e-4 * np.abs(want))))
+    print(f'  B, L, D, N = {B}, {L}, {D}, {N}: max |card - float64| / (1e-5 + 1e-4 |ref|) = '
+          f'{err:.3f}', flush=True)
+    check(err <= 1., 'selective_scan on the card differs from the sequential scan')
+
+    def build(**kw):
+        return models.CpnResNet50UNet(in_channels=3, backbone_kwargs={
+            'secondary_block': models.MambaLayer}, max_detections=2048, samples=32, **kw)
+    phase_card_vs_cpu(rng, 'phase 19c: CpnResNet50UNet with MambaLayer (full width, d_state 16, '
+                      'd_conv 4, expand 2)', build, tame=True)
+    runs = (('fp32', None, 1), ('bf16', torch.bfloat16, 4))
+    launches, _ = main_path(rng, card, errs, floor, 'phase 19c: the Mamba path, CpnResNet50UNet '
+                            'with MambaLayer (full width)', build, tame=True, runs=runs, size=512)
+    scan_share(card, build, runs, 512, rng)
+    return launches
+
+
 def score_gap(a, b):
     """The largest score difference of detections the two sides share
     (by the nearest box), for the report of a count difference."""
@@ -2360,8 +2640,11 @@ def main():
     refs['inputs'] = {k: v for ref in (tiles_ref, val_ref, cli_ref)
                       for k, v in ref['inputs'].items()}
     launches_ddp = phase_ddp(card, errs, refs)
+    launches_demo = phase_demo_binary(card, errs, floor)
+    phase_demo_multiclass(card)
+    launches_mamba = phase_mamba(rng, card, errs, floor)
     imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py',
-                'pandas', 'imageio', 'tifffile', 'PIL'} & set(sys.modules)
+                'pandas', 'imageio', 'tifffile', 'PIL', 'yaml'} & set(sys.modules)
     check(not imported, f'{sorted(imported)} imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
@@ -2371,7 +2654,8 @@ def main():
         'launches_resnet': launches_resnet[name], 'launches_train': launches_train[name],
         'launches_validate': launches_validate[name], 'launches_zoo': launches_zoo[name],
         'launches_cli': launches_cli[name], 'launches_heads': launches_heads[name],
-        'launches_ddp': launches_ddp[name],
+        'launches_ddp': launches_ddp[name], 'launches_demo': launches_demo[name],
+        'launches_mamba': launches_mamba[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

@@ -90,12 +90,15 @@ def test_resnet_cpn_fp32_matches_jax(name, backbone_kwargs, size, batch, capacit
 
 def test_resnet_options_raise_until_ported():
     """The options of later slices name what is missing rather than run wrongly:
-    the ``MambaLayer`` secondary block and 3-D inputs (``pyramid_pooling`` and
-    ``pretrained``, ported since, are held in ``tests/test_torch_port_zoo.py``
-    and ``tests/test_torch_port_pretrained.py``)."""
-    with pytest.raises(NotImplementedError, match='secondary_block .MambaLayer.'):
-        tmodels.get_cpn('CpnResNet18UNet')(3, backbone_kwargs=dict(secondary_block=object),
-                                          device='cpu')
+    3-D inputs (``pyramid_pooling``, ``pretrained`` and the ``MambaLayer``
+    secondary block, ported since, are held in ``tests/test_torch_port_zoo.py``,
+    ``tests/test_torch_port_pretrained.py`` and ``tests/test_torch_port_mamba.py``;
+    here the secondary block builds one layer per stage)."""
+    body = tmodels.get_cpn('CpnResNet18UNet')(
+        3, backbone_kwargs=dict(secondary_block=tmodels.MambaLayer, base_channel=8),
+        device='cpu').core.backbone.body
+    assert [type(getattr(body, f'secondary{i}')).__name__ for i in range(1, 5)] == \
+        ['MambaLayer'] * 4
     model = tmodels.get_cpn('CpnResNet50FPN')(3, backbone_kwargs=dict(base_channel=8),
                                              device='cpu')
     with pytest.raises(NotImplementedError, match='3-D ResNet inputs'):

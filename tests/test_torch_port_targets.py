@@ -239,14 +239,25 @@ def test_downsample_labels_fixture():
 
 
 def test_data_package_imports_without_cv2_and_skimage():
+    # nor h5py, imageio or yaml, which the card's machine lacks as well: the
+    # toy data, augmentations, transforms, datasets and configs run without them
     code = ('import sys\n'
-            'for name in ("cv2", "skimage"):\n'
+            'for name in ("cv2", "skimage", "h5py", "imageio", "yaml"):\n'
             '    sys.modules[name] = None\n'
             'import celldetection_tpu_torch.data as d\n'
+            'from celldetection_tpu_torch.data import datasets\n'
+            'from celldetection_tpu_torch.util import config\n'
             'import numpy as np\n'
             'lab = np.zeros((20, 20), np.int32); lab[5:12, 4:15] = 1\n'
             't = d.cpn_targets_single(lab, 8, 3, rng=np.random.RandomState(0))\n'
             'assert t["num_instances"] == 1\n'
+            'image, labels = datasets.SynthTrain(n=1, height=48, width=48, num=4, radius=(5, 8))[0]\n'
+            'aug = d.conf2augmentation({"RandomRotate90": {"p": 1}, "ElasticTransform": {"p": 1}})\n'
+            'image, labels = aug(image, labels, np.random.RandomState(0))\n'
+            'image = d.BasicTransforms(crop_size=32)("fit", image=image, labels=labels)["image"]\n'
+            'assert image.shape == (32, 32, 3)\n'
+            'assert len(d.random_geometric_shapes(96, 96, seed=0)[3])\n'
+            'c = config.Config(a=1); assert len(c.hash()) == 32\n'
             'assert "jax" not in sys.modules and "celldetection_tpu" not in sys.modules\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
