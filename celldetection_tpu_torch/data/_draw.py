@@ -16,6 +16,15 @@ a float32 image with ``BORDER_REFLECT_101``, and ``remap`` with float32 maps
 * ``fill_poly`` is ``cv2.fillPoly`` / ``cv2.drawContours(..., -1)``: the
   port's polygon fill (:func:`.cpn._fill_polygon`), which clips lines and
   rows that leave the image as cv2 does;
+* ``line`` is ``cv2.line(..., LINE_8)`` of integer points (``ThickLine``):
+  thickness 1 is the ``LineIterator``'s 8-connected line between the end
+  points ``clipLine`` leaves; a thicker line is first clipped by
+  ``clipLine`` to the image widened by the thickness on every side, then
+  drawn as a quad about the clipped segment in 16.16 fixed point (its corners offset by ``cvRound`` of the normal scaled
+  to half the thickness, in double), filled by ``FillConvexPoly``, with a
+  filled ``circle`` of radius ``(thickness + 1) // 2`` at each end, which
+  rounds the joins; ``polylines`` draws a contour's segments so, the last
+  point joined to the first, as ``cv2.drawContours(..., thickness > 0)``;
 * ``gaussian_blur`` is separable, with cv2's kernel (computed in double,
   cast to float32) and the float32 order of summation of cv2's row and
   column filters, whose vector loops (AVX2 on x86-64) fuse each multiply-add
@@ -29,9 +38,9 @@ import math
 
 import numpy as np
 
-from .cpn import _fill_polygon, clip_line
+from .cpn import _fill_polygon, _line_pixels, clip_line
 
-__all__ = ['circle', 'ellipse', 'rectangle', 'fill_poly', 'gaussian_kernel', 'gaussian_blur',
+__all__ = ['circle', 'ellipse', 'rectangle', 'fill_poly', 'line', 'polylines', 'gaussian_kernel', 'gaussian_blur',
            'remap_linear', 'remap_nearest', 'SIN_TABLE']
 
 XY_SHIFT = 16
@@ -219,6 +228,55 @@ def fill_poly(img: np.ndarray, pts, val):
     pts = np.asarray(pts, np.int64).reshape(-1, 2)
     if len(pts):
         _fill_polygon(img, pts, val)
+    return img
+
+
+def _line8(img, p1, p2, val):
+    """cv2's ``Line`` (``LineIterator``, 8-connected, left to right), clipped."""
+    h, w = img.shape[:2]
+    (x1, y1), (x2, y2) = p1, p2
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        (x1, y1), (x2, y2), inside = clip_line(w, h, p1, p2)
+        if not inside:
+            return
+    xs, ys = _line_pixels(x1, y1, x2, y2)
+    img[ys, xs] = val
+
+
+def line(img: np.ndarray, pt1, pt2, val, thickness: int = 1):
+    """``cv2.line(img, pt1, pt2, val, thickness)`` (``LINE_8``, no shift) of integer points."""
+    (x0, y0), (x1, y1) = (tuple(int(v) for v in p) for p in (pt1, pt2))
+    if thickness <= 1:
+        _line8(img, (x0, y0), (x1, y1), val)
+        return img
+    half = thickness << (XY_SHIFT - 1)
+    # the segment first clipped to the image widened by the thickness on every side
+    h, w = img.shape[:2]
+    m = thickness
+    (c0x, c0y), (c1x, c1y), inside = clip_line(w + 2 * m, h + 2 * m, (x0 + m, y0 + m),
+                                               (x1 + m, y1 + m))
+    p0x, p0y = (c0x - m) << XY_SHIFT, (c0y - m) << XY_SHIFT
+    p1x, p1y = (c1x - m) << XY_SHIFT, (c1y - m) << XY_SHIFT
+    dx, dy = (p0x - p1x) / XY_ONE, (p1y - p0y) / XY_ONE
+    r = dx * dx + dy * dy
+    if inside and abs(r) > np.finfo(np.float64).eps:
+        r = (half + (thickness & 1) * XY_ONE * 0.5) / math.sqrt(r)
+        ox, oy = _round(dy * r), _round(dx * r)
+        _fill_convex(img, [(p0x + ox, p0y + oy), (p0x - ox, p0y - oy),
+                           (p1x - ox, p1y - oy), (p1x + ox, p1y + oy)], val)
+    radius = (half + (XY_ONE >> 1)) >> XY_SHIFT
+    circle(img, (x0, y0), radius, val)
+    circle(img, (x1, y1), radius, val)
+    return img
+
+
+def polylines(img: np.ndarray, pts, val, thickness: int = 1):
+    """The outline of one closed contour of integer points, as
+    ``cv2.drawContours(img, [pts], 0, val, thickness)`` draws it for
+    ``thickness >= 1``: every segment, the last point joined to the first."""
+    pts = np.asarray(pts, np.int64).reshape(-1, 2).tolist()
+    for j, p in enumerate(pts):
+        line(img, p, pts[(j + 1) % len(pts)], val, thickness)
     return img
 
 

@@ -6,7 +6,9 @@ Counterpart of ``celldetection_tpu/data/cpn.py``: ``efd`` (34-91),
 ``labels2distances`` with its helpers (437-502), ``CPNTargetGenerator``
 (505-615), and the rendering of contours into label images:
 ``contours2boxes``, ``render_contour``, ``clip_contour_``,
-``contours2labels`` and ``resolve_label_channels`` (196-287).
+``contours2labels`` and ``resolve_label_channels`` (196-287); also
+``labels2contour_list`` (142), ``masks2labels`` (148), ``contours2properties``
+(290), ``filter_contours_by_intensity`` (300) and ``draw_contours`` (315).
 
 The JAX package calls four functions of OpenCV here, and the port has its own
 numpy versions that give the same output, point for point and bit for bit:
@@ -24,6 +26,11 @@ numpy versions that give the same output, point for point and bit for bit:
   ``cv2.fillPoly``: each edge drawn as an 8-connected line, then the edges
   filled by scanline in 16.16 fixed point (:func:`_fill_polygon`), so
   self-intersecting contours and contours of 1 or 2 points come out as cv2's.
+  With ``thickness > 0`` it, :func:`draw_contours` and
+  :func:`contours2overlay` draw outlines as ``cv2.drawContours`` does:
+  ``cv2.line`` of each segment (``LINE_8``; :func:`._draw.polylines`).
+* :func:`masks2labels` is ``cv2.connectedComponents``: ``scipy.ndimage.label``
+  with 4- or 8-connectivity, renumbered in cv2's order (:func:`_cv2_order`).
 * :func:`resolve_label_channels` dilates as ``cv2.dilate`` with the 3x3
   cross of ``cv2.getStructuringElement(MORPH_CROSS)``.
 * :func:`hsv2rgb_uint8` is ``cv2.cvtColor(COLOR_HSV2RGB)`` of one uint8
@@ -39,6 +46,8 @@ from .misc import resample_contours
 from .segmentation import filter_instances_
 
 __all__ = ['CPNTargetGenerator', 'efd', 'fourier2contour', 'labels2contours',
+           'labels2contour_list', 'masks2labels', 'contours2properties',
+           'filter_contours_by_intensity', 'draw_contours',
            'contours2fourier', 'mask_labels_by_distance_', 'labels2distances',
            'outer_borders', 'chamfer_distance', 'contours2boxes', 'render_contour',
            'clip_contour_', 'contours2labels', 'resolve_label_channels', 'contours2overlay',
@@ -270,6 +279,60 @@ def labels2contours(labels: np.ndarray, mode=RETR_EXTERNAL, method=CHAIN_APPROX_
     if labels.shape[2] > 1:
         return OrderedDict(sorted(contours.items()))
     return contours
+
+
+def labels2contour_list(labels: np.ndarray, **kwargs) -> list:
+    """The contours of :func:`labels2contours` as a list of ``[n, 2]`` arrays."""
+    if labels.ndim == 2:
+        labels = labels[..., None]
+    return [np.squeeze(i, 1) for i in labels2contours(labels, **kwargs).values()]
+
+
+def _cv2_order(labels: np.ndarray, n: int, connectivity: int) -> np.ndarray:
+    """Components renumbered as ``cv2.connectedComponents`` numbers them: by
+    the first pixel in raster order for 4-connectivity (SAUF scans pixels),
+    by the first 2x2 block in raster order of blocks for 8-connectivity
+    (Spaghetti scans such blocks, and the pixels of a block are 8-connected)."""
+    if n == 0:
+        return labels
+    ys, xs = np.nonzero(labels)
+    w = labels.shape[1]
+    key = ys * w + xs if connectivity == 4 else (ys // 2) * (w + 1) + xs // 2
+    first = np.full(n + 1, np.iinfo(np.int64).max)
+    np.minimum.at(first, labels[ys, xs], key)
+    remap = np.zeros(n + 1, np.int64)
+    remap[np.argsort(first[1:], kind='stable') + 1] = np.arange(1, n + 1)
+    return remap[labels]
+
+
+def masks2labels(masks, connectivity: int = 8, label_axis: int = 2, count: bool = False,
+                 reduce=np.max, keepdims: bool = True):
+    """Binary masks → label image of their connected components.
+
+    Each mask's components (``connectivity`` 4 or 8) are numbered as cv2
+    numbers them (:func:`_cv2_order`), offset by the count of the masks
+    before it, as the JAX package counts cv2's labels; the per-mask images
+    are stacked on ``label_axis`` and reduced by ``reduce``. Labels are
+    int32, as cv2's default ``CV_32S``.
+    """
+    from scipy import ndimage
+    if connectivity not in (4, 8):
+        raise ValueError(f'connectivity must be 4 or 8, got {connectivity}')
+    structure = ndimage.generate_binary_structure(2, 1 if connectivity == 4 else 2)
+    labels = []
+    cnt = 0
+    for m in masks:
+        b, n = ndimage.label(np.asarray(m, dtype=np.uint8) != 0, structure=structure)
+        b = _cv2_order(b, n, connectivity).astype(np.int32)
+        a = n + 1                                   # cv2's count includes the background
+        if cnt > 0:
+            b[b > 0] += cnt
+        cnt += a - (1 if (a > 1 and 0 in b) else 0)
+        labels.append(b)
+    labels = np.stack(labels, label_axis)
+    if reduce is not None:
+        labels = reduce(labels, axis=label_axis, keepdims=keepdims)
+    return (labels, cnt) if count else labels
 
 
 def contours2fourier(contours: dict, order: int = 5, dtype=np.float32, batched: bool = True):
@@ -572,8 +635,24 @@ def _fill_polygon(img: np.ndarray, pts: np.ndarray, val):
     end points ``clip_line`` gives, and its edge takes their x (and their y
     where they differ) while it keeps the rows of the unclipped line; rows
     above the image are walked, not drawn."""
-    h, w = img.shape
+    _fill_edges(img, _poly_edges(img, pts, val, []), val)
+
+
+def _fill_polygons(img: np.ndarray, polygons, val):
+    """``cv2.drawContours(img, polygons, -1, val, -1)`` (``fillPoly`` of several
+    polygons): the edges of all of them in one collection, filled with
+    even-odd pairing, so where polygons overlap an even count leaves a hole."""
     edges = []
+    for pts in polygons:
+        if len(pts):
+            _poly_edges(img, np.asarray(pts, np.int64).reshape(-1, 2), val, edges)
+    _fill_edges(img, edges, val)
+
+
+def _poly_edges(img: np.ndarray, pts: np.ndarray, val, edges: list) -> list:
+    """cv2's ``CollectPolyEdges`` of one polygon: its lines drawn, its
+    non-horizontal edges appended to ``edges`` (see :func:`_fill_polygon`)."""
+    h, w = img.shape[:2]
     px, py = (int(v) for v in pts[-1])
     for qx, qy in pts.tolist():
         (cx0, cy0), (cx1, cy1) = (px, py), (qx, qy)
@@ -592,6 +671,12 @@ def _fill_polygon(img: np.ndarray, pts: np.ndarray, val):
             (x, y), top = ((cx0, cy0), py) if py < qy else ((cx1, cy1), qy)
             edges.append([top, max(py, qy), (x << _XY_SHIFT) + (top - y) * slope, slope])
         px, py = qx, qy
+    return edges
+
+
+def _fill_edges(img: np.ndarray, edges: list, val):
+    """cv2's ``FillEdgeCollection`` (see :func:`_fill_polygon`)."""
+    h, w = img.shape[:2]
     if len(edges) < 2:
         return
     edges.sort(key=lambda e: (e[0], e[2], e[3]))
@@ -627,15 +712,14 @@ def _fill_polygon(img: np.ndarray, pts: np.ndarray, val):
 def render_contour(contour, val=1, dtype='int32', round=False, reference=None, thickness=-1):
     """Rasterize one contour into a tight crop; returns ``(crop, (xmin, xmax), (ymin, ymax))``.
 
-    The fill is ``cv2.drawContours(thickness=-1)``'s, pixel for pixel
-    (:func:`_fill_polygon`), of the points truncated to int32 as the JAX
-    package passes them, clipped to the crop as cv2 clips (``reference``
-    need not bound the contour). Only filled contours (``thickness=-1``)
-    are implemented.
+    The points are truncated to int32 as the JAX package passes them to
+    ``cv2.drawContours``, and drawn clipped to the crop as cv2 clips
+    (``reference`` need not bound the contour): filled (``thickness < 0``,
+    :func:`_fill_polygon`), or as an outline of ``thickness`` pixels
+    (:func:`._draw.polylines`).
     """
-    if thickness != -1:
-        raise NotImplementedError(f'thickness={thickness}: the port implements only filled '
-                                  f'contours (thickness=-1)')
+    if thickness == 0:
+        raise ValueError('thickness 0: cv2 draws outlines of at least 1 pixel')
     bounds = contour if reference is None else reference
     (xmin, ymin), (xmax, ymax) = (fn(bounds, axis=0) for fn in (np.min, np.max))
     xmin, ymin = int(np.floor(xmin)), int(np.floor(ymin))
@@ -644,7 +728,11 @@ def render_contour(contour, val=1, dtype='int32', round=False, reference=None, t
     pts = np.asarray(pts, dtype=np.int32).reshape((-1, 2)) - np.array([xmin, ymin], np.int32)
     crop = np.zeros((ymax - ymin + 1, xmax - xmin + 1), dtype=dtype)
     if len(pts):
-        _fill_polygon(crop, pts, val)
+        if thickness < 0:
+            _fill_polygon(crop, pts, val)
+        else:
+            from ._draw import polylines
+            polylines(crop, pts, val, thickness)
     return crop, (xmin, xmax), (ymin, ymax)
 
 
@@ -755,15 +843,83 @@ def resolve_label_channels(labels: np.ndarray, method: str = 'dilation', max_ite
     return lbl.astype(labels.dtype)
 
 
+def contours2properties(contours, *properties, round=True, **kwargs):
+    """Region properties (:func:`.misc.labels2properties`) of each contour's
+    filled crop, in image coordinates."""
+    from .misc import labels2properties
+    results = []
+    for con in contours:
+        m, (xmin, xmax), (ymin, ymax) = render_contour(con, dtype='int32', round=round)
+        results += labels2properties(m, *properties, offset=kwargs.pop('offset', (ymin, xmin)),
+                                     **kwargs)
+    return results
+
+
+def filter_contours_by_intensity(img, contours, min_intensity=None, max_intensity=200,
+                                 aggregate='mean'):
+    """Keep mask of the contours whose interior's ``aggregate`` of ``img``
+    lies within the bounds."""
+    keep = np.ones(len(contours), dtype=bool)
+    for idx, con in enumerate(contours):
+        m, (xmin, xmax), (ymin, ymax) = render_contour(con, dtype='uint8')
+        img_crop = img[ymin:ymin + m.shape[0], xmin:xmin + m.shape[1]]
+        m = m[:img_crop.shape[0], :img_crop.shape[1]].astype(bool)
+        val = getattr(np, aggregate)(img_crop[m])
+        if max_intensity is not None and val > max_intensity:
+            keep[idx] = False
+        elif min_intensity is not None and val < min_intensity:
+            keep[idx] = False
+    return keep
+
+
+def draw_contours(canvas, contours, val=(51, 255, 51), round=True, contour_idx=-1, thickness=2,
+                  offset=(0, 0)):
+    """``cv2.drawContours(canvas, contours, contour_idx, val, thickness)`` on a
+    numpy canvas, changed in place and returned.
+
+    A 2-D canvas with a 3-value ``val`` becomes RGB first (cv2's
+    ``GRAY2RGB``: a new array). Float points are rounded (``round``) and
+    truncated to integers. ``thickness > 0`` draws each contour's outline,
+    ``thickness < 0`` fills all drawn contours as one polygon set (even-odd,
+    :func:`_fill_polygons`). ``val`` is a cv2 scalar: a single channel takes
+    its first value, missing channels take 0. Lines are cv2's ``LINE_8``.
+    """
+    contours = np.asarray(contours)
+    if canvas.ndim == 2 and isinstance(val, (list, tuple, np.ndarray)) and len(val) == 3:
+        canvas = np.repeat(canvas[..., None], 3, -1)
+    if contours.dtype.kind == 'f':
+        if round:
+            contours = contours.round()
+        contours = contours.astype(int)
+    scalar = list(np.atleast_1d(val)) + [0] * 4
+    channels = canvas.shape[2] if canvas.ndim == 3 else 1
+    v = scalar[0] if channels == 1 else tuple(scalar[:channels])
+    chosen = range(len(contours)) if contour_idx < 0 else [contour_idx]
+    polygons = [np.asarray(contours[i], np.int64).reshape(-1, 2) + np.asarray(offset, np.int64)
+                for i in chosen]
+    if thickness < 0:
+        _fill_polygons(canvas, polygons, v)
+    else:
+        from ._draw import polylines
+        for pts in polygons:
+            polylines(canvas, pts, v, thickness)
+    return canvas
+
+
 _HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
 
 
-def hsv2rgb_uint8(hsv: np.ndarray) -> np.ndarray:
+def hsv2rgb_uint8(hsv: np.ndarray, row_lanes: int = 0) -> np.ndarray:
     """``cv2.cvtColor(hsv, COLOR_HSV2RGB)`` of uint8 ``[..., 3]`` triples (hue
     0-179), as cv2 converts one pixel: s and v scaled by ``1 / 255`` in
     float32, the hue by ``6 / 180``, the sector's falling and rising edges
     ``v * (1 - s * h)`` with ``1 - s * h`` fused (one rounding, as cv2's build
-    contracts it), and the result times 255 rounded half to even."""
+    contracts it), and the result times 255 rounded half to even.
+
+    ``row_lanes``: ``hsv`` ``[N, 3]`` is one image row for cv2, whose vector
+    loop takes ``row_lanes`` pixels at a time (32 where cv2 dispatches AVX2)
+    and converts them back by truncation; the last ``N % row_lanes`` pixels
+    take the one-pixel code. 0: every pixel as one pixel alone."""
     f32, one = np.float32, np.float32(1)
     hsv = np.asarray(hsv, np.uint8)
     s = hsv[..., 1].astype(f32) * f32(1 / 255.)
@@ -774,8 +930,12 @@ def hsv2rgb_uint8(hsv: np.ndarray) -> np.ndarray:
     falling = (1. - s.astype(np.float64) * h).astype(f32)          # a fused multiply-add
     rising = (1. - s.astype(np.float64) * (one - h)).astype(f32)
     tab = np.stack([v, v * (one - s), v * falling, v * rising], -1)
-    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector % 6], -1)
-    return np.clip(np.rint(bgr[..., ::-1] * f32(255)), 0, 255).astype(np.uint8)
+    rgb = np.take_along_axis(tab, _HSV_SECTORS[sector % 6], -1)[..., ::-1] * f32(255)
+    out = np.rint(rgb)
+    if row_lanes:
+        vector = len(rgb) - len(rgb) % row_lanes
+        out[:vector] = np.trunc(rgb[:vector])
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _random_rgb(rng: np.random.RandomState) -> tuple:

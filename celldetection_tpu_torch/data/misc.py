@@ -4,21 +4,29 @@ Counterpart of ``celldetection_tpu/data/misc.py``: ``normalize_percentile``
 (79-100), ``random_crop`` (103-111), ``random_pad`` (114-124),
 ``resample_contours`` (143-179), ``labels2properties`` (195-225),
 ``rgb_to_scalar`` (137-140), ``regionprops2d`` (228-238) and
-``labels2property_table`` (254-299), copied
-so that the port imports nothing of the JAX package. The JAX package's
+``labels2property_table`` (254-299), ``channels_first2channels_last`` (22),
+``channels_last2channels_first`` (30), ``transpose_spatial`` (34),
+``padding_stack`` (41), ``universal_dict_collate_fn`` (56), ``rle2mask``
+(126), ``pad_to_size`` (182), ``pad_to_div`` (188), ``split`` (241) and
+``labels2crops`` (302), copied so that the port imports nothing of the JAX
+package. The JAX package's
 property table is a ``pandas.DataFrame``; the port's is a
 :class:`PropertyTable` of the same columns and rows, written as pandas'
 ``to_csv(index=False)`` writes that frame, without pandas.
 """
 import csv
 import numbers
-from typing import Union
+from collections import OrderedDict
+from typing import List, Union
 
 import numpy as np
 
 __all__ = ['normalize_percentile', 'random_crop', 'random_pad', 'resample_contours',
            'rgb_to_scalar',
-           'labels2properties', 'regionprops2d', 'labels2property_table', 'PropertyTable']
+           'labels2properties', 'regionprops2d', 'labels2property_table', 'PropertyTable',
+           'channels_first2channels_last', 'channels_last2channels_first', 'transpose_spatial',
+           'padding_stack', 'universal_dict_collate_fn', 'rle2mask', 'pad_to_size', 'pad_to_div',
+           'split', 'labels2crops']
 
 
 def normalize_percentile(image: np.ndarray, percentile=99.9, to_uint8: bool = False,
@@ -242,3 +250,106 @@ def labels2property_table(labels: np.ndarray, *properties, iter_channels: bool =
             if k not in columns:
                 columns.append(k)
     return PropertyTable(columns, data)
+
+
+def channels_first2channels_last(x: np.ndarray, spatial_dims: int = 2, has_batch: bool = False) -> np.ndarray:
+    c = x.ndim - spatial_dims - int(has_batch)
+    perm = tuple(range(int(has_batch))) + tuple(range(x.ndim - spatial_dims, x.ndim)) + \
+        tuple(range(int(has_batch), int(has_batch) + c))
+    # simpler: move the channel axes to the end
+    return np.moveaxis(x, int(has_batch), -1) if c == 1 else np.transpose(x, perm)
+
+
+def channels_last2channels_first(x: np.ndarray, spatial_dims: int = 2, has_batch: bool = False) -> np.ndarray:
+    return np.moveaxis(x, -1, int(has_batch))
+
+
+def transpose_spatial(x: np.ndarray, inputs_channels_last: bool = True, spatial_dims: int = 2):
+    """Bring an array to channels-last (the framework's native layout)."""
+    if inputs_channels_last:
+        return x
+    return channels_first2channels_last(x, spatial_dims)
+
+
+def padding_stack(*images, axis: int = 0) -> np.ndarray:
+    """Stack arrays along a new axis, end-padding all dims to the largest extent."""
+    if len(images) == 1 and isinstance(images[0], (list, tuple)):
+        images = tuple(images[0])
+    nd = max(i.ndim for i in images)
+    shapes = [(1,) * (nd - i.ndim) + i.shape for i in images]
+    target = tuple(max(s[d] for s in shapes) for d in range(nd))
+    out = []
+    for i in images:
+        i = i.reshape((1,) * (nd - i.ndim) + i.shape)
+        pad = [(0, t - s) for t, s in zip(target, i.shape)]
+        out.append(np.pad(i, pad))
+    return np.stack(out, axis)
+
+
+def universal_dict_collate_fn(batch: List[dict], check_padding: bool = True) -> OrderedDict:
+    """Collate a list of dicts into a dict of padding-stacked arrays.
+
+    ``None`` items (e.g. skipped tiles) are dropped. Values that are lists of
+    per-object arrays are padding-stacked with a companion ``<key>_size`` entry
+    left to the caller. Parity: ``celldetection/data/misc.py:136-153``.
+    """
+    batch = [b for b in batch if b is not None]
+    if len(batch) == 0:
+        return OrderedDict()
+    keys = batch[0].keys()
+    out = OrderedDict()
+    for k in keys:
+        vals = [b[k] for b in batch]
+        if vals[0] is None:
+            out[k] = None
+        elif isinstance(vals[0], np.ndarray):
+            out[k] = padding_stack(*vals, axis=0)
+        else:
+            out[k] = vals
+    return out
+
+
+def rle2mask(code, size, transpose: bool = True, min_index: int = 1, constant: int = 1) -> np.ndarray:
+    """Run-length code → binary mask. Parity: ``celldetection/data/misc.py:231``."""
+    image = np.zeros(int(np.prod(size)), dtype=np.uint8)
+    code = np.asarray(code).ravel()
+    starts, lengths = code[::2] - min_index, code[1::2]
+    for s, l in zip(starts, lengths):
+        image[s:s + l] = constant
+    image = image.reshape(size[::-1] if transpose else size)
+    return image.T if transpose else image
+
+
+def pad_to_size(v: np.ndarray, size, **kwargs) -> np.ndarray:
+    pad = [[0, max(0, a - b)] for a, b in zip(size, v.shape)]
+    pad += [[0, 0]] * (v.ndim - len(pad))
+    return np.pad(v, pad, **kwargs)
+
+
+def pad_to_div(v: np.ndarray, div: int = 32, nd: int = 2, **kwargs) -> np.ndarray:
+    if not isinstance(div, (tuple, list)):
+        div = (div,) * nd
+    size = [(i // d + bool(i % d)) * d for i, d in zip(v.shape, div)]
+    return pad_to_size(v, size, **kwargs)
+
+
+def split(n: int, *fractions, shuffle: bool = True, seed=None):
+    """Partition ``range(n)`` into index sets by fractions summing to 1
+    (parity: ``split``, ``celldetection/data/misc.py:489``)."""
+    if abs(sum(fractions) - 1.) > 1e-9:
+        raise ValueError('The sum of splits must be equal to 1.')
+    rng = np.random.RandomState(seed)
+    idx = np.arange(n)
+    if shuffle:
+        rng.shuffle(idx)
+    bounds = np.cumsum([int(round(f * n)) for f in fractions])[:-1]
+    return [np.sort(part) for part in np.split(idx, bounds)]
+
+
+def labels2crops(labels: np.ndarray, image: np.ndarray):
+    """Crop every labeled object from ``image``; returns (crops, masks)."""
+    crops, masks = [], []
+    for (y0, x0, y1, x1), mask in labels2properties(labels, 'bbox', 'image'):
+        crops.append(image[y0:y1, x0:x1])
+        masks.append(mask)
+    return crops, masks

@@ -6,7 +6,9 @@ Counterpart of ``celldetection_tpu/ops/boxes.py``: ``box_area`` (79),
 ``pairwise_generalized_box_iou`` (112-137), ``remove_small_boxes_mask``
 (140-144), ``nms_padded`` (147-191),
 ``_nms_sweep`` (216-250), ``nms_chunked`` (253-347), ``nms_indices``
-(350-362), ``get_iou_voting`` and ``filter_by_box_voting`` (365-387).
+(350-362), ``get_iou_voting`` and ``filter_by_box_voting`` (365-387), and
+the reference's conveniences ``nms`` (30) and ``batched_box_nmsi`` (46)
+over ``nms_indices`` and ``nms_chunked``.
 ``_nms_sweep`` is the plain version of the whole sweep that the hand-written
 CUDA kernels of :mod:`..kernels.nms` do, and ``nms_padded`` on CPU tensors is
 the oracle they are held against. ``_suppression_counts``,
@@ -25,7 +27,7 @@ import torch
 __all__ = ['box_area', 'box_iou', 'pairwise_box_iou', 'pairwise_generalized_box_iou',
            'sort_by_score', 'nms_padded', 'nms_chunked', 'nms_indices',
            'remove_small_boxes_mask', 'get_iou_voting', 'filter_by_box_voting',
-           'EXACT_NMS_MIN', 'EXACT_NMS_MAX']
+           'EXACT_NMS_MIN', 'EXACT_NMS_MAX', 'nms', 'batched_box_nmsi']
 
 # nms_chunked's exact branch: above its chunk, an image of EXACT_NMS_MIN to
 # EXACT_NMS_MAX boxes takes nms_padded whole, as the JAX package does on a TPU
@@ -438,6 +440,49 @@ def nms_indices(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     order = torch.sort(torch.where(keep, scores, -torch.inf), descending=True,
                        stable=True).indices
     return order, keep[order]
+
+
+def _on_device(x, device):
+    """A tensor stays on its own device unless ``device`` names one; any other
+    input goes to ``resolve_device(device)``: the card unless the caller asks
+    for the CPU, never a silent CPU run."""
+    if torch.is_tensor(x) and device is None:
+        return x
+    from ..util.device import resolve_device
+    return torch.as_tensor(x, device=resolve_device(device))
+
+
+def nms(boxes, scores, iou_threshold: float, device=None):
+    """torchvision-style NMS: the kept boxes' indices, by descending score, as
+    host numpy (the reference's ``cd.ops.nms``). Tensors run on their own
+    device (a CUDA tensor takes the NMS kernels), other inputs on ``device``,
+    ``cuda`` by default. :func:`nms_padded` keeps everything on the device."""
+    boxes = _on_device(boxes, device)
+    scores = _on_device(scores, device).to(boxes.device)
+    valid = torch.ones(boxes.shape[0], dtype=torch.bool, device=boxes.device)
+    order, keep = nms_indices(boxes, scores, valid, iou_threshold)
+    order, keep = order.cpu().numpy(), keep.cpu().numpy()
+    return order[keep]
+
+
+def batched_box_nmsi(boxes, scores, iou_threshold: float, batch_size: int = None, device=None):
+    """NMS of each of several lists of boxes (the reference's
+    ``cd.ops.batched_box_nmsi``): each list through :func:`nms_chunked`
+    (``batch_size`` its chunk), on its tensors' device or, for other inputs,
+    on ``device`` (``cuda`` by default); its kept indices returned as host
+    numpy in stable descending score order."""
+    import numpy as np
+    assert len(boxes) == len(scores)
+    out = []
+    for b, s in zip(boxes, scores):
+        b = _on_device(b, device)
+        s = _on_device(s, device).to(b.device)
+        v = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+        kw = {'chunk': int(batch_size)} if batch_size else {}
+        keep = nms_chunked(b, s, v, iou_threshold, **kw)
+        idx = np.flatnonzero(keep.cpu().numpy())
+        out.append(idx[np.argsort(-s.cpu().numpy()[idx], kind='stable')])
+    return out
 
 
 def get_iou_voting(boxes: torch.Tensor, thresh: float, valid: torch.Tensor = None) -> torch.Tensor:

@@ -2,14 +2,18 @@
 
 Counterpart of ``celldetection_tpu/ops/commons.py`` (``resize_bilinear``,
 ``resize_nearest``, ``equal_size``: lines 24-76; ``downsample_labels``:
-79-101; ``process_scores``: 115-143). Models run NCHW internally and call
-:func:`interpolate_nchw`.
+79-101; ``process_scores``: 115-143; ``values2bins``, ``padded_stack2d``,
+``split_spatially``, ``minibatch_std_layer``, ``strided_upsampling2d``,
+``interpolate_vector``, ``pad_to_size``, ``pad_to_div``, ``spatial_mean``:
+146-233). Models run NCHW internally and call :func:`interpolate_nchw`.
 """
 import torch
 import torch.nn.functional as F
 
 __all__ = ['interpolate_nchw', 'resize_bilinear', 'resize_nearest', 'equal_size',
-           'downsample_labels', 'process_scores', 'clip']
+           'downsample_labels', 'process_scores', 'clip', 'values2bins', 'padded_stack2d',
+           'split_spatially', 'minibatch_std_layer', 'strided_upsampling2d',
+           'interpolate_vector', 'pad_to_size', 'pad_to_div', 'spatial_mean']
 
 
 def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
@@ -111,3 +115,86 @@ def process_scores(scores: torch.Tensor, score_channels: int, score_thresh,
     else:
         raise ValueError(f'Invalid score_channels: {score_channels}')
     return scores, classes
+
+
+def values2bins(values: torch.Tensor, limits, bins: int) -> torch.Tensor:
+    """Quantise values in ``limits`` into ``bins`` int32 bins (floor division
+    and remainder with Python's signs, as ``jnp``'s ``//`` and ``%``)."""
+    mi, ma = limits
+    v = (values - mi) / (ma - mi)
+    return torch.remainder(torch.div(v, 1.0 / bins, rounding_mode='floor'), bins).to(torch.int32)
+
+
+def padded_stack2d(*images, dim: int = 0) -> torch.Tensor:
+    """Stack tensors, zero-padding their last two dims at the end to the largest extent."""
+    ts = tuple(max(i.shape[j] for i in images) for j in range(-2, 0))
+    padded = [F.pad(i, (0, ts[1] - i.shape[-1], 0, ts[0] - i.shape[-2])) for i in images]
+    return torch.stack(padded, dim)
+
+
+def split_spatially(x: torch.Tensor, size) -> torch.Tensor:
+    """NHWC ``[n, h, w, c]`` → patches ``[n * h // ph * w // pw, ph, pw, c]``, row-major per image."""
+    n, h, w, c = x.shape
+    ph, pw = size
+    x = x.reshape(n, h // ph, ph, w // pw, pw, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ph, pw, c)
+
+
+def minibatch_std_layer(x: torch.Tensor, channels: int = 1, group_channels: int = None,
+                        epsilon: float = 1e-8) -> torch.Tensor:
+    """Minibatch standard-deviation layer (NHWC; ProGAN, arXiv:1710.10196):
+    ``channels`` maps of the mean standard deviation over groups of the batch,
+    appended to the channels. Batch element ``b`` belongs to group ``b % g``."""
+    n, h, w, c = x.shape
+    gc = min(group_channels or n, n)
+    cc, g = c // channels, n // gc
+    y = x.reshape(gc, g, h, w, channels, cc)
+    y = torch.sqrt(y.var(0, unbiased=False) + epsilon).mean((1, 2, 4), keepdim=True)[..., 0]
+    y = y[None].expand(gc, g, h, w, channels).reshape(n, h, w, channels)
+    return torch.cat([x, y], -1)
+
+
+def strided_upsampling2d(x: torch.Tensor, factor: int = 2, const: float = 0) -> torch.Tensor:
+    """Upsample NHWC by ``factor``, the new rows and columns filled with ``const``."""
+    n, h, w, c = x.shape
+    out = torch.full((n, h * factor, w * factor, c), const, dtype=x.dtype, device=x.device)
+    out[:, ::factor, ::factor] = x
+    return out
+
+
+def interpolate_vector(v: torch.Tensor, size: int, method: str = 'linear') -> torch.Tensor:
+    """A 1-D tensor resized to ``size`` entries as ``jax.image.resize`` does:
+    ``'linear'`` with half-pixel centres (antialiased on a downscale),
+    ``'nearest'`` at the half-pixel centres' nearest entries."""
+    x = v[None, None, None, :]
+    if method in ('linear', 'bilinear'):
+        return interpolate_nchw(x.float(), (1, size), 'bilinear')[0, 0, 0].to(v.dtype)
+    if method == 'nearest':
+        return F.interpolate(x, size=(1, size), mode='nearest-exact')[0, 0, 0]
+    raise ValueError(f'interpolate_vector: method {method!r} is not ported (linear, nearest)')
+
+
+def pad_to_size(v: torch.Tensor, size, return_pad: bool = False, constant_values=0):
+    """Pad the trailing ``len(size)`` dims of ``v`` at their end up to ``size``
+    with ``constant_values`` (the pad is returned as ``jnp.pad``'s list of pairs)."""
+    pad = [(0, 0)] * (v.dim() - len(size))
+    for a, b in zip(size, v.shape[v.dim() - len(size):]):
+        pad.append((0, max(0, a - b)))
+    out = v
+    if any(p for _, p in pad):
+        flat = [x for lo_hi in reversed(pad) for x in lo_hi]
+        out = F.pad(v, flat, value=constant_values)
+    return (out, pad) if return_pad else out
+
+
+def pad_to_div(v: torch.Tensor, div: int = 32, nd: int = 2, return_pad: bool = False, **kwargs):
+    """Pad the trailing ``nd`` dims at their end to multiples of ``div``."""
+    if not isinstance(div, (tuple, list)):
+        div = (div,) * nd
+    size = [(i // d + bool(i % d)) * d for i, d in zip(v.shape[v.dim() - len(div):], div)]
+    return pad_to_size(v, size, return_pad=return_pad, **kwargs)
+
+
+def spatial_mean(x: torch.Tensor, keepdims: bool = False) -> torch.Tensor:
+    """Mean over the spatial dims of a channels-last tensor (dims 1 to ndim - 2)."""
+    return x.mean(tuple(range(1, x.dim() - 1)), keepdim=keepdims)

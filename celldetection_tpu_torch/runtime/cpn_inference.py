@@ -20,8 +20,8 @@ work: ``'rank'`` gives each input to one rank; ``'job'`` runs every input on
 all ranks, each mosaic's tiles split over them
 (:func:`..parallel.tiles.multihost_tiled_inference`), and rank 0 writes;
 ``'node'`` gives each input to one node and splits its tiles over that
-node's ranks. Each input has exactly one writer. ``demo_figure`` raises (the
-visualisation is not ported).
+node's ranks. Each input has exactly one writer. ``demo_figure`` writes
+``<name>_demo.png`` (matplotlib, imported only then).
 """
 import argparse
 import glob as glob_mod
@@ -190,7 +190,7 @@ def infer_input(src, tiled_list: Sequence[TiledInference], mask=None, point_mask
                 labels: bool = False, flat_labels: bool = False,
                 properties: Optional[List[str]] = None, spacing=None, separator: str = '-',
                 overlay: bool = False, overlay_processes: Optional[int] = None,
-                overlay_seed: Optional[int] = None) -> dict:
+                overlay_seed: Optional[int] = None, demo_figure: bool = False) -> dict:
     """Everything :func:`cpn_inference` computes for one input, nothing written.
 
     Args:
@@ -202,13 +202,15 @@ def infer_input(src, tiled_list: Sequence[TiledInference], mask=None, point_mask
         mask, point_mask: Optional arrays or file names, paired with ``src``.
         overlay_seed: The seed of the overlay's random colours (None, as
             :func:`cpn_inference` draws them, gives other colours each call).
+        demo_figure: Keep the preprocessed image's first channel as ``demo``
+            for :func:`write_outputs`' figure.
         Other arguments as :func:`cpn_inference`'s.
 
     Returns:
         ``name``, ``size`` (h, w), ``result`` (the tiled inference's
         detections), ``labels``, ``flat_labels``, ``table`` (a
-        :class:`..data.misc.PropertyTable`) and ``overlay``, each None unless
-        asked for, and ``seconds`` by stage on the host clock (``load``,
+        :class:`..data.misc.PropertyTable`), ``overlay`` and ``demo``, each
+        None unless asked for, and ``seconds`` by stage on the host clock (``load``,
         ``preprocess``, ``inference``, ``labels``, ``flat_labels``,
         ``table``, ``overlay``) beside ``stats``, the tiled inference's own
         (the first model's).
@@ -247,7 +249,8 @@ def infer_input(src, tiled_list: Sequence[TiledInference], mask=None, point_mask
     seconds['inference'] = time.perf_counter() - t0
     h, w = img.shape[:2]
     out = dict(name=name, size=(h, w), result=res, labels=None, flat_labels=None, table=None,
-               overlay=None, seconds=seconds, stats=dict(tiled_list[0].stats))
+               overlay=None, seconds=seconds, stats=dict(tiled_list[0].stats),
+               demo=(img[..., 0] if img.ndim == 3 else img) if demo_figure else None)
 
     contours = list(res['contours'])
     if labels:
@@ -278,7 +281,8 @@ def infer_input(src, tiled_list: Sequence[TiledInference], mask=None, point_mask
 def write_outputs(outputs: str, computed: dict, args: dict):
     """Write what :func:`infer_input` computed for one input into the
     directory ``outputs``: ``<name>.h5`` (detections, label images, the
-    ``args`` attribute as JSON), ``<name>.csv`` and ``<name>_overlay.tiff``."""
+    ``args`` attribute as JSON), ``<name>.csv``, ``<name>_overlay.tiff`` and
+    ``<name>_demo.png``, the contours over the image (matplotlib)."""
     from ..util.io import to_h5, to_tiff
     name, res = computed['name'], computed['result']
     out_fn = os.path.join(outputs, f'{name}.h5')
@@ -291,6 +295,10 @@ def write_outputs(outputs: str, computed: dict, args: dict):
         computed['table'].to_csv(os.path.join(outputs, f'{name}.csv'))
     if computed['overlay'] is not None:
         to_tiff(os.path.join(outputs, f'{name}_overlay.tiff'), computed['overlay'])
+    if computed.get('demo') is not None:
+        from ..visualization.images import save_fig, show_detection
+        ax = show_detection(image=computed['demo'], contours=list(res['contours']))
+        save_fig(os.path.join(outputs, f'{name}_demo.png'), ax.figure)
 
 
 def cpn_inference(
@@ -335,6 +343,7 @@ def cpn_inference(
             the columns of a vector property, as ``bbox-0``; ``spacing``
             gives physical units).
         overlay: Write an RGBA overlay TIFF (``overlay_processes`` workers).
+        demo_figure: Write ``<name>_demo.png``: the contours over the image.
         reps: Test-time augmentation over flips (1-4).
         accelerator: None, ``'auto'``, ``'gpu'`` or ``'cuda'`` (the card),
             ``'cuda:N'`` or ``'cpu'`` (:func:`resolve_accelerator`).
@@ -361,8 +370,6 @@ def cpn_inference(
             if k not in ('devices', 'rank_devices', 'backend', '_with_indices')}
     from ..parallel.mesh import broadcast_from_rank0, get_num_nodes, shard_inputs_by_process
 
-    if demo_figure:
-        raise NotImplementedError('demo_figure: the visualisation is not ported')
     grouped = dist.is_available() and dist.is_initialized()
     if devices is not None and int(devices) > 1 and not grouped:
         return spawn_ranks(int(devices), call, rank_devices, backend)
@@ -427,7 +434,8 @@ def cpn_inference(
                 masks_dataset=masks_dataset, point_masks_dataset=point_masks_dataset,
                 point_mask_exclusive=point_mask_exclusive, min_vote=min_vote, reps=reps,
                 labels=labels, flat_labels=flat_labels, properties=properties, spacing=spacing,
-                separator=separator, overlay=overlay, overlay_processes=overlay_processes)
+                separator=separator, overlay=overlay, overlay_processes=overlay_processes,
+                demo_figure=demo_figure)
             if writer:
                 write_outputs(outputs, computed, args)
             results.append((src_idx, computed['result']) if _with_indices else computed['result'])

@@ -5,9 +5,10 @@ Counterpart of ``celldetection_tpu/runtime/trainer.py``: ``CPNTrainer`` with
 multi-process epochs at 163-214), ``gather_item_records`` (255-278),
 ``validate`` (282-357, ``distributed`` at 293-300), the hyperparameters of
 prediction (360-377), ``predict`` (379-401) and the msgpack checkpoints
-(420-482). With a ``mesh`` (:func:`..parallel.mesh.make_mesh`) the trainer
-runs on every rank of it, one card each; the metrics logger and figure
-logging belong to a later slice of the port and raise here.
+(420-482), the metrics log of every step (228-232) and the contour figures
+(``_log_contour_figure``, 403-415). With a ``mesh``
+(:func:`..parallel.mesh.make_mesh`) the trainer runs on every rank of it,
+one card each.
 """
 import os
 import time
@@ -74,6 +75,15 @@ class CPNTrainer:
         seed: Seeds the host pipeline (shuffles, per-item seeds) and the
             ``torch.Generator`` of the training steps' random draws (rank
             ``r`` of a mesh seeds its generator with ``seed + r``).
+        metrics_logger: Optional :class:`..util.logging.MetricsLogger`: every
+            step logs ``loss``, ``ema_loss`` and the loss terms with the step
+            number.
+        log_figures_every: Every this many steps (0: never) the model's
+            detections on the batch's first image are drawn
+            (:func:`..visualization.images.show_detection`) and saved as
+            ``contours_step{N}.png`` in the logger's directory (``logs``
+            without one); a failure to draw is reported through ``log_fn``
+            and training goes on.
         mesh: Optional ``DeviceMesh`` (or process group) of ranks, one card
             each: every rank builds the same trainer and calls :meth:`fit`
             with the same data; each trains on its slice of every batch
@@ -86,11 +96,9 @@ class CPNTrainer:
                  tile_size: int = 1024, tile_stride: int = 512, ema_decay: float = 0.99,
                  log_fn: Callable = print, seed: int = 0, metrics_logger=None,
                  log_figures_every: int = 0):
-        if metrics_logger is not None or log_figures_every:
-            raise NotImplementedError('the metrics logger and figure logging are not ported '
-                                      'yet; they come with the slice of the command-line '
-                                      'interface')
         self.model = model
+        self.metrics_logger = metrics_logger
+        self.log_figures_every = log_figures_every
         self.val_hparams = val_hparams or {'score_thresh': [.5, .86, .88, .9, .92]}
         self.checkpoint_dir = checkpoint_dir
         if optimizer is None:
@@ -232,6 +240,13 @@ class CPNTrainer:
                         self.ema_decay * self._ema_loss + (1 - self.ema_decay) * loss
                     for i in idx:
                         self.item_record.setdefault(int(i), []).append({'batch_loss': loss})
+                    if self.metrics_logger is not None:
+                        self.metrics_logger.log(self.state.step, loss=loss,
+                                                ema_loss=self._ema_loss,
+                                                **{k: float(v) for k, v in sorted(metrics.items())
+                                                   if k != 'loss'})   # JAX's (pytree) order
+                    if self.log_figures_every and self.state.step % self.log_figures_every == 0:
+                        self._log_contour_figure(batch['image'][:1])
                 for i, recs in self.gather_item_records().items():
                     if i >= n:
                         continue
@@ -319,6 +334,23 @@ class CPNTrainer:
         if isinstance(images, np.ndarray) and images.ndim <= 3:
             images = [images]
         return [self._predict_single(np.asarray(im, np.float32)) for im in images]
+
+    def _log_contour_figure(self, image: np.ndarray):
+        """The model's detections on ``image`` (``[1, H, W, C]``) drawn over its
+        first channel and saved as ``contours_step{N}.png`` beside the metrics
+        log. Never raises: figure logging must not stop training."""
+        try:
+            from ..visualization.images import save_fig, show_detection
+            self.model.eval()           # the next step puts the model back in train mode
+            with torch.no_grad():
+                out = self.model(image)
+            ax = show_detection(image=np.asarray(image[0, ..., 0]),
+                                contours=list(out['contours'][0]))
+            log_dir = os.path.dirname(getattr(self.metrics_logger, 'path', 'logs/x')) or 'logs'
+            os.makedirs(log_dir, exist_ok=True)
+            save_fig(os.path.join(log_dir, f'contours_step{self.state.step}.png'), ax.figure)
+        except Exception as e:
+            self.log_fn(f'figure logging failed: {type(e).__name__}: {e}')
 
     # --- validation sweep and calibration -----------------------------------
 

@@ -17,7 +17,7 @@ Phases, in order; any failure exits non-zero:
      of 16,384 boxes, one image of 262,144, and one of 262,145, the smallest
      that takes the large layout). At the main path's and the stitch's
      shapes it times the sweep per call (CUDA events) and each kernel on the
-     device (profiler), beside the bound, the plain version, the launches
+     device (CUDA events around each launch), beside the bound, the plain version, the launches
      per call, the peak scratch and the launch floor;
   4. full-width CpnU22 at 256^2 on the card against the same model on the
      CPU, TF32 off;
@@ -127,7 +127,30 @@ Phases, in order; any failure exits non-zero:
      a ``MambaLayer`` after every stage card against CPU at 256^2 and on
      512^2 tiles as phase 5 (fp32 batch 1, bf16 batch 4; the kernel launches
      of that run are ``launches_mamba``), with the scan's share of the
-     forward.
+     forward; then the model in bf16 at batch 4 held against fp32 on the
+     same inputs (4 toy images of 512^2) under the bf16 gates of the CPU
+     tests (counts within 8%, 92% of the fp32 boxes matched at IoU 0.8, their
+     contours within 0.5 px on average) and the dense score logits' 99th
+     percentile of |bf16 - fp32| within 0.12 of their spread, before
+     NMS, after 12 training steps on toy images and with trained-like scores
+     (the score head shifted and scaled so that a wide gap of the fp32 logits
+     falls on the threshold, as ``tests/test_torch_port_mamba.py`` does);
+ 20. the utilities on full-width CpnU22 and phase 5's inputs: (a) the NMS
+     entry points ``ops.boxes.nms`` on a 2048-box image of a 1024^2 forward
+     and ``batched_box_nmsi`` on three lists of 20,000 random boxes
+     (``batch_size`` 5000), on the card, each bit-equal to its plain run on
+     the CPU (the kernel launches of that run are ``launches_utils``), and
+     each kernel of both held against its plain version and timed as in
+     phase 3;
+     (b) ``ops.draw.draw_contours`` of that forward's [2048, 32, 2] contours
+     on a 1024^2 canvas, card against CPU; (c) one epoch of phase 11b's fit
+     with ``MetricsLogger``: one JSON line a step, the last equal to the
+     trainer's history; (d) ``Timer(sync=True)`` around five forwards beside
+     CUDA events, ``GpuStats``, ``get_total_memory`` against the device's
+     properties, and ``OomCatcher`` through a real out-of-memory error (twice
+     the card's memory, then a quarter of that); (e) three Adam steps under
+     ``frozen_optimizer`` with the encoder frozen (its parameters bit
+     unchanged) and ``ema_update`` on the card against the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -164,6 +187,8 @@ from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
 from celldetection_tpu_torch.runtime.cpn_inference import infer_input, preprocess, tiled_models
 from celldetection_tpu_torch.runtime.trainer import CPNTrainer
 from celldetection_tpu_torch.util.config import conf2optimizer
+from celldetection_tpu_torch.util import surgery, system, timer
+from celldetection_tpu_torch.util.logging import MetricsLogger
 from celldetection_tpu_torch.util.serialization import load_model, load_model_meta, save_model
 from celldetection_tpu_torch.util.weights import body_layout, init_jax_variables, state_dict_from_jax
 
@@ -188,10 +213,6 @@ PAIR_TEST_OPS = 14
 # the bits kernels' exact early-out): 4 compares.
 APART_OPS = 4
 SCRATCH_LIMIT = 256 * 2 ** 20   # bytes the NMS sweep may allocate at any phase-3 shape
-# profiler names of the kernels' device functions (each in its two layouts' builds)
-DEVICE_NAMES = (('nms_bits_kernel<false,', 'nms_bits_count'),
-                ('nms_bits_kernel<true,', 'nms_bits_fill'),
-                ('nms_resolve_kernel', 'nms_resolve'))
 SOURCES = {'nms_bits_count': 'nms_bits.cu', 'nms_bits_fill': 'nms_bits.cu',
            'nms_resolve': 'nms_resolve.cu'}
 
@@ -394,30 +415,50 @@ def hold_each(b, v, thresh, errs):
     return keep, offsets, slots, bands
 
 
-def device_ms(fn, calls, attempts=5):
+LAUNCH_NAMES = {'cdt_nms_bits_count': 'nms_bits_count', 'cdt_nms_bits_fill': 'nms_bits_fill',
+                'cdt_nms_resolve': 'nms_resolve'}
+
+
+HOLD_CYCLES = 200_000       # a device-side wait of about 0.1 ms ahead of each timed launch
+EVENTS = 'CUDA events around each launch'
+
+
+def event_ms(fn, calls):
     """Device time (ms) per launch of each NMS kernel over ``calls`` calls of
-    ``fn``, from ``torch.profiler``, with its launches per call. A profiling
-    session now and then records no device activity at all (late in a long
-    run, several in a row); it is repeated after a pause, and None returned
-    when no session saw every kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``fn``, from CUDA events recorded just before and after each launch on
+    its stream (``kernels.nms._launch`` wrapped), with its launches per call
+    (``torch.profiler`` misses kernels late in a long process). Ahead of each launch the
+    stream waits on the device (``torch.cuda._sleep``) while the host queues
+    the event, the kernel and the second event, so the span holds the
+    kernel and the events' own few microseconds, not the host's launch; the
+    median span is taken, as a host stalled past the wait stretches one.
+    It fails when a kernel was not launched at least once a call."""
+    original = knms._launch
+    spans = {name: [] for name in LAUNCH_NAMES.values()}
+
+    def timed(built, name, device, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        a.record()
+        original(built, name, device, *args)
+        b.record()
+        spans[LAUNCH_NAMES[name]].append((a, b))
+
     fn()
-    for _ in range(attempts):
+    torch.cuda.synchronize()
+    knms._launch = timed
+    try:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            for key, name in DEVICE_NAMES:
-                if e.device_type == DeviceType.CUDA and key in e.key:
-                    out[name] = (e.self_device_time_total / 1e3 / e.count, round(e.count / calls))
-        if len(out) == len(DEVICE_NAMES):
-            return out
-        time.sleep(1.)
-    return None
+    finally:
+        knms._launch = original
+    check(all(len(ev) >= calls for ev in spans.values()),
+          f'event timing: launches per call {({k: len(ev) / calls for k, ev in spans.items()})}')
+    out = {name: (float(np.median([a.elapsed_time(b) for a, b in ev])), round(len(ev) / calls))
+           for name, ev in spans.items()}
+    check(all(ms > 0. for ms, _ in out.values()), f'event timing: {out}')
+    return out
 
 
 def launch_floor_ms():
@@ -428,7 +469,9 @@ def launch_floor_ms():
 
 
 def time_sweep(label, b, v, keep, thresh, card, floor):
-    """The sweep's time per call and per kernel at one shape, beside its bound."""
+    """The sweep's time per call and per kernel at one shape, beside its bound.
+    Returns the ms per call and, per kernel, its device ms per launch, its
+    launches per call and how the device time was taken."""
     t0 = time.perf_counter()
     nms_sweep(b, v, thresh)
     torch.cuda.synchronize()
@@ -440,7 +483,7 @@ def time_sweep(label, b, v, keep, thresh, card, floor):
     for _ in range(iters):
         nms_sweep(b, v, thresh)
     host_ms = (time.perf_counter() - t0) / iters * 1e3
-    dev = device_ms(lambda: nms_sweep(b, v, thresh), min(iters, 10))
+    dev = event_ms(lambda: nms_sweep(b, v, thresh), min(iters, 10))
     before = [k.launches for k in kernels.KERNELS]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -450,12 +493,11 @@ def time_sweep(label, b, v, keep, thresh, card, floor):
     scratch = torch.cuda.max_memory_allocated() - held
     per_call = sum(k.launches for k in kernels.KERNELS) - sum(before)
     bound_ms, bound_by, tests = nms_bound(b, v, keep, thresh)
-    kernels_ms = 'not measured (no profiling session saw every kernel)' if dev is None else \
-        ', '.join(f'{name} {dev[name][0]:.4f} ms x{dev[name][1]}' for _, name in DEVICE_NAMES)
+    kernels_ms = ', '.join(f'{name} {dev[name][0]:.4f} ms x{dev[name][1]}' for name in SOURCES)
     print(f'  [{card}] nms_sweep {label}: {ms:.4f} ms per call (median of 3 windows of {iters} '
           f'calls, {windows[0]:.4f}-{windows[2]:.4f}; CUDA events), '
           f'host {host_ms:.4f} ms per call (host clock, no synchronisation); on the device '
-          f'{kernels_ms} (profiler); {per_call} kernel launches per call, '
+          f'{kernels_ms} ({EVENTS}); {per_call} kernel launches per call, '
           f'launch floor {floor:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}; {tests} pair '
           f'tests); peak scratch {scratch / 2 ** 20:.1f} MiB; library call: none; SM clock, '
           f'power, temperature after the windows: {clocks}', flush=True)
@@ -825,15 +867,116 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
                      'nms_resolve': lambda: _resolve_blocks(v, diag, pairs, removed, keep, 0, nb)}
             bounds = kernel_bounds(b, v, k, pairs, slots)
             for name_k, fn in plain.items():
-                ms_k = None if dev is None else dev[name_k][0]
+                ms_k, _ = dev[name_k]
                 kernel_rec[name_k] = dict(ms=ms_k, plain_ms=cuda_ms(fn, 2, warmup=1),
                                           bound_ms=bounds[name_k][0], bound_by=bounds[name_k][1])
                 print(f'  [{card}] {name_k} B={batch} N=2048 ({name} main path, '
                       f'{"slots" if slots else "packed"} layout): '
-                      f'{"not measured" if ms_k is None else f"{ms_k:.4f} ms"} on the device, plain '
+                      f'{ms_k:.4f} ms on the device ({EVENTS}), plain '
                       f'{kernel_rec[name_k]["plain_ms"]:.3f} ms, bound '
                       f'{bounds[name_k][0]:.6f} ms ({bounds[name_k][1]})', flush=True)
     return launches, kernel_rec
+
+
+SCORE_HEAD_OUT = 'core.score_head.block.4'      # the score head's output convolution
+
+
+# phase 19c's dense gate: per image, the 99th percentile of the score logits'
+# |bf16 - fp32| over the fp32 logits' standard deviation. Set between the
+# sound runs of scripts/torch_mamba_bf16_hold.py (at most 0.0702 on the H100)
+# and its mildest control, every bf16 parameter scaled by 1 + 0.01 n (0.2069
+# and up); the mean is printed, not gated, as it also holds the bf16 rounding
+# of the rescaled score bias, a shift of every logit alike.
+BF16_LOGIT_P99 = 0.12
+
+
+def trained_like(build, sd, x, train_seed=0):
+    """The fp32 model ``build`` makes (TF32 off) with the weights ``sd``
+    trained 12 steps first, in fp32 with cuDNN's deterministic algorithms,
+    on 8 toy images of 128^2 (seeds ``8 train_seed`` on; the trainer's seed
+    ``SEED + train_seed``), as the CPU tests do (random norm statistics make
+    a deep residual net chaotic in bf16). Then, as
+    ``tests/test_torch_port_zoo.py`` does for a random network, its score
+    head is scaled and shifted so that the widest gap of its logits on ``x``
+    between ranks ``100 B`` and ``400 B`` falls on logit 16.5, the
+    threshold. Returns the model, its state dict and the threshold."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = build(compute_dtype=None)
+    m32.load_state_dict(sd, strict=True)
+    toy = [random_geometric_objects(128, 128, num=12, radius=(6, 14), seed=8 * train_seed + i)
+           for i in range(8)]
+    deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    try:
+        CPNTrainer(m32, optimizer={'Adam': {'lr': 2e-3}}, log_fn=lambda *a: None,
+                   seed=SEED + train_seed).fit(
+            [(np.repeat(im[..., None], 3, -1).astype(np.float32), lab) for im, lab in toy],
+            epochs=6, batch_size=4, max_instances=32, prefetch=1)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    sd = {k: v.detach().clone() for k, v in m32.state_dict().items()}
+    batch = x.shape[0]
+    logits = m32.forward_padded(x, nms=False)['dense_scores'].float().flatten()
+    s_ = torch.sort(logits, descending=True).values.double().cpu().numpy()
+    lo, hi = 100 * batch, 400 * batch
+    i = lo - 1 + int(np.argmax(s_[lo - 1:hi - 1] - s_[lo:hi]))
+    f = 50. / float(logits.double().std())
+    w, b = sd[f'{SCORE_HEAD_OUT}.weight'], sd[f'{SCORE_HEAD_OUT}.bias']
+    sd[f'{SCORE_HEAD_OUT}.weight'] = w * np.float32(f)
+    sd[f'{SCORE_HEAD_OUT}.bias'] = (b - np.float32((s_[i] + s_[i + 1]) / 2)) * np.float32(f) + \
+        np.float32(16.5)
+    m32.load_state_dict(sd, strict=True)
+    return m32, sd, float(1 / (1 + np.exp(-16.5)))
+
+
+def bf16_hold(m32, m16, x, thresh):
+    """``m16`` (bf16) against ``m32`` (fp32) on ``x``, before NMS, under the
+    bf16 gates of the CPU tests (``tests/test_torch_port_cpn.py::
+    test_cpn_u12_trained_bf16_matches_jax``): per image, the count of
+    detections within 8% (at least 2), 92% of the fp32 boxes matched at IoU
+    0.8 and their contours within 0.5 px on average; and the dense score
+    logits under ``BF16_LOGIT_P99`` (the selected scores themselves
+    saturate to 1 at logit 16.5 and above, so they are not compared).
+    Returns the failures and a line of the readings."""
+    o32 = m32.forward_padded(x, score_thresh=thresh, nms=False)
+    o16 = m16.forward_padded(x, score_thresh=thresh, nms=False)
+    fails, rows = [], []
+    for j in range(x.shape[0]):
+        v32, v16 = o32['valid'][j], o16['valid'][j]
+        n32, n16 = int(v32.sum()), int(v16.sum())
+        iou = box_iou(o32['boxes'][j][v32].float(), o16['boxes'][j][v16].float())
+        best, k = iou.max(1) if n16 else (torch.zeros(n32, device=x.device), None)
+        matched = best > 0.8
+        frac = float(matched.float().mean()) if n32 else 1.
+        contour_err = float((o32['contours'][j][v32][matched].float() -
+                             o16['contours'][j][v16][k[matched]].float()).abs().mean()) \
+            if int(matched.sum()) else 0.
+        l32 = o32['dense_scores'][j].float()
+        rel = ((o16['dense_scores'][j].float() - l32).abs() / l32.std()).flatten()
+        mean, p99 = float(rel.mean()), float(torch.quantile(rel, 0.99))
+        rows.append(f'image {j}: fp32 {n32}, bf16 {n16}, matched {frac:.4f}, contour mean |diff| '
+                    f'{contour_err:.3f} px, logits |diff| / std mean {mean:.4f} p99 {p99:.4f}')
+        if n32 < 20:
+            fails.append(f'image {j}: the fp32 run fired on {n32} pixels')
+        if abs(n32 - n16) > max(2, int(0.08 * n32)):
+            fails.append(f'image {j}: counts {n32} and {n16}')
+        if frac < 0.92 or contour_err >= 0.5 or p99 > BF16_LOGIT_P99:
+            fails.append(rows[-1])
+    return fails, '; '.join(rows)
+
+
+def bf16_against_fp32(card, build, sd, x, train_seed=0):
+    """The model ``build`` makes in bf16 against the same model in fp32 on the
+    same inputs ``x``, with the weights ``sd`` made trained-like
+    (:func:`trained_like`), under the gates of :func:`bf16_hold`."""
+    m32, sd, thresh = trained_like(build, sd, x, train_seed)
+    m16 = build(compute_dtype=torch.bfloat16)
+    m16.load_state_dict(sd, strict=True)
+    fails, line = bf16_hold(m32, m16, x, thresh)
+    print(f'  [{card}] bf16 batch {x.shape[0]} against fp32 (TF32 off) on the same inputs, before '
+          f'NMS, threshold sigmoid(16.5) in the fp32 logits\' widest gap between ranks '
+          f'{100 * x.shape[0]} and {400 * x.shape[0]}: {line}', flush=True)
+    check(not fails, 'bf16 against fp32: ' + '; '.join(fails))
 
 
 def nms_weights(model, out):
@@ -2565,6 +2708,182 @@ def phase_mamba(rng, card, errs, floor):
     launches, _ = main_path(rng, card, errs, floor, 'phase 19c: the Mamba path, CpnResNet50UNet '
                             'with MambaLayer (full width)', build, tame=True, runs=runs, size=512)
     scan_share(card, build, runs, 512, rng)
+    print('== phase 19c: bf16 batch 4 against fp32, CpnResNet50UNet with MambaLayer, after 12 '
+          'steps on 8 toy images of 128^2, on 4 toy images of 512^2', flush=True)
+    toy = np.stack([random_geometric_objects(512, 512, num=40, radius=(6, 14), seed=100 + i)[0]
+                    for i in range(4)])
+    x = torch.from_numpy(np.repeat(toy[..., None], 3, -1).astype(np.float32)).cuda()
+    bf16_against_fp32(card, build, random_weights(build(), tame=True), x)
+    return launches
+
+
+UTIL_LISTS, UTIL_BOXES, UTIL_CHUNK = 3, 20_000, 5000   # phase 20a's batched_box_nmsi
+
+
+def random_box_lists(rng, lists, n, extent=4000.):
+    """``lists`` images of ``n`` random boxes (4 to 24 px) with random scores, float32."""
+    out = []
+    for _ in range(lists):
+        xy = rng.rand(n, 2).astype(np.float32) * np.float32(extent)
+        wh = rng.rand(n, 2).astype(np.float32) * np.float32(20) + np.float32(4)
+        out.append((torch.from_numpy(np.concatenate([xy, xy + wh], 1)),
+                    torch.from_numpy(rng.rand(n).astype(np.float32))))
+    return out
+
+
+def phase_utils(rng, card, errs, floor):
+    """Phase 20: the NMS entry points, the outline rasteriser, the metrics log,
+    the timer and memory utilities and parameter surgery on the card. Returns
+    the NMS kernels' launches of (a)."""
+    from celldetection_tpu_torch.ops import boxes as tboxes
+    from celldetection_tpu_torch.ops import draw as tdraw
+    print(f'== phase 20: the utilities on full-width CpnU22 and {TILE}^2 inputs as phase 5',
+          flush=True)
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = models.CpnU22(in_channels=3, max_detections=2048, samples=32)
+    model.load_state_dict(random_weights(model), strict=True)
+    x = torch.from_numpy(rng.rand(1, TILE, TILE, 3).astype(np.float32)).cuda()
+    probs = torch.sigmoid(model.forward_padded(x, nms=False)['dense_scores'].float())
+    pre = model.forward_padded(x, score_thresh=threshold_above(probs, 3072), nms=False)
+    v = pre['valid'][0]
+    boxes, scores = pre['boxes'][0][v].contiguous(), pre['scores'][0][v].contiguous()
+    check(len(boxes) == 2048, f'(a) the forward gave {len(boxes)} boxes, not 2048')
+    lists = random_box_lists(rng, UTIL_LISTS, UTIL_BOXES)
+
+    # (a) the NMS entry points, counted from 0
+    reset_launches()
+    t0 = time.perf_counter()
+    kept = tboxes.nms(boxes, scores, model.nms_thresh)
+    nms_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kept_lists = tboxes.batched_box_nmsi([b.cuda() for b, _ in lists],
+                                         [s_.cuda() for _, s_ in lists], 0.5, UTIL_CHUNK)
+    batched_s = time.perf_counter() - t0
+    kept_np = tboxes.nms(boxes.cpu().numpy(), scores.cpu().numpy(), model.nms_thresh)  # to the card
+    launches = read_launches()
+    check(all(n > 0 for n in launches.values()), '(a) a kernel of the entry points never launched')
+    t0 = time.perf_counter()
+    want = tboxes.nms(boxes.cpu(), scores.cpu(), model.nms_thresh)
+    want_lists = tboxes.batched_box_nmsi([b for b, _ in lists], [s_ for _, s_ in lists], 0.5,
+                                         UTIL_CHUNK)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(kept, want) and np.array_equal(kept_np, want),
+          '(a) nms on the card differs from the CPU')
+    check(all(np.array_equal(a, b) for a, b in zip(kept_lists, want_lists)),
+          '(a) batched_box_nmsi on the card differs from the CPU')
+    print(f'  [{card}] (a) nms of 2048 boxes: {len(kept)} kept in {1e3 * nms_s:.2f} ms (host '
+          f'clock, to the host indices); batched_box_nmsi of {UTIL_LISTS} x {UTIL_BOXES} boxes, '
+          f'batch_size {UTIL_CHUNK}: {[len(k) for k in kept_lists]} kept in {1e3 * batched_s:.2f} '
+          f'ms; both, and nms of numpy inputs (on the card by default), bit-equal to the plain '
+          f'run on the CPU ({plain_s:.1f} s); kernel launches '
+          f'(launches_utils) {launches}', flush=True)
+    # each kernel of those calls against its plain version, and the sweep timed alone
+    for label, (b_in, s_in), t in (('ops.nms', (boxes, scores), model.nms_thresh),
+                                   ('batched_box_nmsi, list 0', lists[0], 0.5)):
+        b_in, s_in = b_in.cuda()[None], s_in.cuda()[None]
+        _, b_, v_ = sort_by_score(b_in, s_in, torch.ones_like(s_in, dtype=torch.bool))
+        k_, _, _, _ = hold_each(b_, v_, t, errs)
+        check(torch.equal(k_, _nms_sweep(b_, v_, t)), f'(a) {label}: the sweep and plain differ')
+        ms, _ = time_sweep(f'B=1 N={v_.shape[1]} t={t} (phase 20a, {label})', b_, v_, k_, t, card,
+                           floor)
+        plain_ms = cuda_ms(lambda: _nms_sweep(b_, v_, t), 3, warmup=1)
+        print(f'  [{card}] plain _nms_sweep B=1 N={v_.shape[1]} ({label}): {plain_ms:.3f} ms; '
+              f'nms_sweep {ms:.4f} ms', flush=True)
+
+    # (b) the outline rasteriser
+    contours = pre['contours'][0]
+    canvas = torch.zeros(TILE, TILE, dtype=torch.int32, device='cuda')
+    drawn = tdraw.draw_contours(canvas, contours, valid=v)
+    ms = cuda_ms(lambda: tdraw.draw_contours(canvas, contours, valid=v), 20)
+    want = tdraw.draw_contours(canvas.cpu(), contours.cpu(), valid=v.cpu())
+    check(torch.equal(drawn.cpu(), want), '(b) draw_contours on the card differs from the CPU')
+    print(f'  [{card}] (b) draw_contours of {tuple(contours.shape)} contours on a {TILE}^2 canvas: '
+          f'{int((drawn > 0).sum())} pixels drawn, equal to the CPU; {ms:.3f} ms a call (CUDA '
+          f'events)', flush=True)
+
+    # (c) the metrics log of one epoch of phase 11b's fit
+    with tempfile.TemporaryDirectory() as tmp:
+        data = disk_images(TRAIN_IMAGES, TRAIN_SIZE, SEED)
+        tm = models.CpnU22(in_channels=1, **TRAIN)
+        tm.load_state_dict(random_weights(tm), strict=True)
+        logger = MetricsLogger(tmp, tensorboard=False)
+        trainer = CPNTrainer(tm, optimizer={'Adam': {'lr': 5e-4}}, log_fn=lambda *a: None,
+                             seed=SEED, metrics_logger=logger)
+        hist = trainer.fit(data, epochs=1, batch_size=TRAIN_BATCH, crop_size=TRAIN_SIZE,
+                           prefetch=1)
+        with open(logger.path) as f:
+            lines = [json.loads(line) for line in f]
+    steps = -(-TRAIN_IMAGES // TRAIN_BATCH)
+    check(len(lines) == steps and [r['step'] for r in lines] == list(range(1, steps + 1)),
+          f'(c) {len(lines)} log lines for {steps} steps')
+    check(lines[-1]['loss'] == hist[-1]['loss'] and lines[-1]['ema_loss'] == hist[-1]['ema_loss'],
+          '(c) the last log line differs from the trainer\'s history')
+    check(all(np.isfinite(r[k]) for r in lines for k in r if k.startswith('loss')),
+          '(c) a logged loss is not finite')
+    print(f'  [{card}] (c) fit, one epoch of {steps} steps with MetricsLogger: {len(lines)} JSON '
+          f'lines, keys {sorted(k for k in lines[0] if k != "time")}, losses '
+          f'{[round(r["loss"], 4) for r in lines]}, the last equal to the history', flush=True)
+
+    # (d) timer, memory statistics, total memory, a real out-of-memory error
+    for _ in range(2):
+        model.forward_padded(x, nms=False)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.Timer('5 forwards', sync=True) as t:
+        a.record()
+        for _ in range(5):
+            model.forward_padded(x, nms=False)
+        b.record()
+    events_ms = a.elapsed_time(b)
+    check(t.seconds * 1e3 >= 0.98 * events_ms, f'(d) Timer {t.seconds} s below the events\' '
+                                                f'{events_ms} ms')
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(system.get_total_memory() == total, '(d) get_total_memory differs from the device\'s')
+    stats = system.GpuStats()
+    check(stats.dict()['dev0_used'] == torch.cuda.memory_allocated(0), '(d) GpuStats')
+    sizes = []
+    catcher = system.OomCatcher(attempts=3, factor=0.25, initial=2 * total, verbose=False)
+    for size in catcher:
+        with catcher:
+            sizes.append(size)
+            block = torch.empty(size, dtype=torch.uint8, device='cuda')
+            del block
+    torch.cuda.empty_cache()
+    check(catcher.ok and sizes == [2 * total, total // 2],
+          f'(d) OomCatcher tried {sizes}, ok {catcher.ok}')
+    print(f'  [{card}] (d) Timer(sync=True) around 5 forwards: {1e3 * t.seconds:.2f} ms (host '
+          f'clock), CUDA events {events_ms:.2f} ms; GpuStats {stats}; get_total_memory '
+          f'{system.get_total_memory()} = the device\'s {total} bytes; OomCatcher asked for '
+          f'{[str(system.Bytes(n)) for n in sizes]}: the first raised out of memory, the second '
+          f'held', flush=True)
+
+    # (e) surgery: the encoder frozen through three Adam steps; EMA card against CPU
+    fm = models.CpnU22(in_channels=1, **TRAIN)
+    fm.load_state_dict(random_weights(fm), strict=True)
+    opt = surgery.frozen_optimizer({'Adam': {'lr': 1e-3}}, fm, r'^core\.backbone\.')
+    frozen = surgery.match_paths(fm, r'^core\.backbone\.')
+    before = {n: p.detach().clone() for n, p in fm.named_parameters()}
+    ft = CPNTrainer(fm, optimizer=opt, log_fn=lambda *a: None, seed=SEED)
+    batch = ft._make_batch(data, np.arange(TRAIN_BATCH), TRAIN['samples'], 5, 128,
+                           np.random.RandomState(0), crop_size=TRAIN_SIZE)
+    for _ in range(3):
+        ft._step_fn(ft.state, dict(batch), ft.generator)
+    torch.cuda.synchronize()
+    same = [torch.equal(p.detach(), before[n]) for n, p in fm.named_parameters() if n in frozen]
+    moved = [not torch.equal(p.detach(), before[n]) for n, p in fm.named_parameters()
+             if n not in frozen]
+    check(frozen and all(same), '(e) a frozen parameter changed')
+    check(any(moved), '(e) no trainable parameter changed')
+    new = {n: p.detach() for n, p in fm.named_parameters()}
+    got = surgery.ema_update(before, new, decay=0.99)
+    want = surgery.ema_update({n: t_.cpu() for n, t_ in before.items()},
+                              {n: t_.cpu() for n, t_ in new.items()}, decay=0.99)
+    check(all(torch.equal(got[n].cpu(), want[n]) for n in got), '(e) ema_update card and CPU differ')
+    print(f'  [{card}] (e) three Adam steps under frozen_optimizer(^core.backbone.): '
+          f'{len(same)} frozen parameters bit unchanged, {sum(moved)} of {len(moved)} others '
+          f'moved; ema_update of {len(got)} tensors on the card equal to the CPU\'s', flush=True)
+    print(f'  phase 20: {time.perf_counter() - t_phase:.1f} s', flush=True)
     return launches
 
 
@@ -2608,8 +2927,6 @@ def main():
     launches, rec = main_path(rng, card, errs, floor, 'phase 5: main path, CpnU22 (full width)',
                               lambda **kw: models.CpnU22(in_channels=3, max_detections=2048,
                                                          samples=32, **kw))
-    check(all(rec[name]['ms'] is not None for name in SOURCES),
-          'the profiler never saw the main path\'s NMS kernels')
     phase_tiled_card_vs_cpu(rng)
     launches_tiled, tiles_ref = phase_gigapixel(card, floor)
     phase_card_vs_cpu(rng, 'phase 8: CpnResNeXt101UNet (full width and depth)',
@@ -2643,8 +2960,10 @@ def main():
     launches_demo = phase_demo_binary(card, errs, floor)
     phase_demo_multiclass(card)
     launches_mamba = phase_mamba(rng, card, errs, floor)
+    launches_utils = phase_utils(rng, card, errs, floor)
     imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py',
-                'pandas', 'imageio', 'tifffile', 'PIL', 'yaml'} & set(sys.modules)
+                'pandas', 'imageio', 'tifffile', 'PIL', 'yaml', 'matplotlib',
+                'tensorboard'} & set(sys.modules)
     check(not imported, f'{sorted(imported)} imported')
     print(f'total {time.perf_counter() - t_start:.1f} s', flush=True)
     record = {'kernels': [{
@@ -2655,11 +2974,13 @@ def main():
         'launches_validate': launches_validate[name], 'launches_zoo': launches_zoo[name],
         'launches_cli': launches_cli[name], 'launches_heads': launches_heads[name],
         'launches_ddp': launches_ddp[name], 'launches_demo': launches_demo[name],
-        'launches_mamba': launches_mamba[name],
+        'launches_mamba': launches_mamba[name], 'launches_utils': launches_utils[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],
         'library_ms': None} for name in SOURCES]}
+    check(all(k[key] > 0. for k in record['kernels'] for key in ('ms', 'plain_ms', 'bound_ms')),
+          f'a kernel lacks a measured time: {record}')
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -280,8 +280,9 @@ def test_unported_settings_raise(setup, tmp_path):
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match='rank_devices'):
             tcli.cpn_inference([image], pm, devices=2, **kw)
-    with pytest.raises(NotImplementedError, match='demo_figure'):
-        tcli.cpn_inference([image], pm, accelerator='cpu', demo_figure=True, **kw)
+    # demo_figure is ported: it writes the figure beside the h5
+    tcli.cpn_inference([image], pm, accelerator='cpu', demo_figure=True, **kw)
+    assert os.path.isfile(os.path.join(kw['outputs'], 'array0_demo.png'))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             tcli.cpn_inference([image], pm, **kw)

@@ -441,5 +441,6 @@ def test_fit_adaptive_sampling_and_unported_options():
     assert set(tr.gather_item_records()) <= {0, 1, 2}
     with pytest.raises(RuntimeError, match='process group'):
         TTrainer(pm, mesh=object())
-    with pytest.raises(NotImplementedError):
-        TTrainer(pm, log_figures_every=5)
+    # the metrics logger and figure logging are ported: the options are taken
+    tr = TTrainer(pm, log_figures_every=5)
+    assert tr.log_figures_every == 5 and tr.metrics_logger is None

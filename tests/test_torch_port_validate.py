@@ -4,7 +4,7 @@ The same numpy-seeded contours, labels and images go through the JAX package
 (which renders with cv2) and through ``celldetection_tpu_torch`` on the CPU:
 
 * ``render_contour``, ``contours2labels`` and ``resolve_label_channels``
-  pixel for pixel against cv2's ``drawContours(thickness=-1)`` and
+  pixel for pixel against cv2's ``drawContours`` (filled and outlines) and
   ``dilate``, on over 200 seeded contours: self-intersecting polygons and
   figure eights, contours of 1 and 2 points, contours clipped at the border,
   and overlaps that open a third channel; the native rasterizer and its
@@ -78,8 +78,13 @@ def test_render_contour_equals_cv2():
             b, xb, yb = tcpn.render_contour(contour, val=7, round=rnd)
             assert (xa, ya) == (xb, yb)
             np.testing.assert_array_equal(b, a)
-    with pytest.raises(NotImplementedError, match='thickness'):
-        tcpn.render_contour(contour, thickness=1)
+    # outlines: cv2.drawContours(thickness > 0), pixel for pixel
+    for contour in random_contours(rng, 40):
+        for thickness in (1, 2, 3):
+            a, xa, ya = jcpn.render_contour(contour, val=7, round=True, thickness=thickness)
+            b, xb, yb = tcpn.render_contour(contour, val=7, round=True, thickness=thickness)
+            assert (xa, ya) == (xb, yb)
+            np.testing.assert_array_equal(b, a)
 
 
 def test_contours2labels_and_resolve_equal_cv2():
