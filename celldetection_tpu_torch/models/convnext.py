@@ -13,6 +13,8 @@ MLP's ``mlp0``/``mlp1`` are ``nn.Linear`` (flax ``Dense`` kernels
 transposed). flax's ``Conv`` without a padding is ``'SAME'``: the 4x4/4 stem
 and the 2x2/2 downsamples pad as it does (:func:`.commons.same_padding`), so
 sides that the strides do not divide give the JAX package's shapes.
+``nd=3`` builds the encoder for NCDHW volumes (``Conv3d`` stem, downsamples
+and depthwise convolutions).
 """
 from typing import Dict, Optional, Sequence
 
@@ -20,12 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .commons import StochasticDepth, same_padding
+from .commons import StochasticDepth, conv_nd, same_padding
 
-__all__ = ['GRN', 'CNBlock', 'ConvNeXtEncoder', 'ConvNeXt', 'ConvNeXtV2', 'ConvNeXtTiny',
-           'ConvNeXtSmall', 'ConvNeXtBase', 'ConvNeXtLarge', 'ConvNeXtV2Atto', 'ConvNeXtV2Femto',
-           'ConvNeXtV2Pico', 'ConvNeXtV2Nano', 'ConvNeXtV2Tiny', 'ConvNeXtV2Base',
-           'ConvNeXtV2Large', 'ConvNeXtV2Huge']
+__all__ = ['GRN', 'CNBlock', 'CNBlockV2', 'ConvNeXtEncoder', 'ConvNeXt', 'ConvNeXtV2',
+           'ConvNeXtTiny', 'ConvNeXtSmall', 'ConvNeXtBase', 'ConvNeXtLarge', 'ConvNeXtV2Atto',
+           'ConvNeXtV2Femto', 'ConvNeXtV2Pico', 'ConvNeXtV2Nano', 'ConvNeXtV2Tiny',
+           'ConvNeXtV2Base', 'ConvNeXtV2Large', 'ConvNeXtV2Huge']
 
 
 class GRN(nn.Module):
@@ -55,10 +57,11 @@ class CNBlock(nn.Module):
     GELU (and GRN in V2), layer scale, stochastic depth in train mode."""
 
     def __init__(self, channels: int, layer_scale: Optional[float] = 1e-6,
-                 stochastic_depth_prob: float = 0., kernel_size: int = 7, v2: bool = False):
+                 stochastic_depth_prob: float = 0., kernel_size: int = 7, v2: bool = False,
+                 nd: int = 2):
         super().__init__()
-        self.dwconv = nn.Conv2d(channels, channels, kernel_size, padding=kernel_size // 2,
-                                groups=channels)
+        self.dwconv = conv_nd(nd)(channels, channels, kernel_size, padding=kernel_size // 2,
+                                  groups=channels)
         self.norm = nn.LayerNorm(channels, eps=1e-6)
         self.mlp0 = nn.Linear(channels, 4 * channels)
         self.grn = GRN(4 * channels) if v2 else None
@@ -78,6 +81,12 @@ class CNBlock(nn.Module):
         return x + self.drop(out.movedim(-1, 1))
 
 
+def CNBlockV2(channels: int, **kwargs) -> CNBlock:
+    """The ConvNeXt V2 block: GRN, no layer scale."""
+    kwargs.setdefault('layer_scale', None)
+    return CNBlock(channels, v2=True, **kwargs)
+
+
 class ConvNeXtEncoder(nn.Module):
     """ConvNeXt multi-scale encoder returning a dict of NCHW maps (key '0' finest).
 
@@ -94,29 +103,28 @@ class ConvNeXtEncoder(nn.Module):
     def __init__(self, in_channels: int = 3, depths: Sequence[int] = (3, 3, 9, 3),
                  channels: Sequence[int] = (96, 192, 384, 768),
                  stochastic_depth_prob: float = 0., layer_scale: float = 1e-6, v2: bool = False,
-                 fused_initial: bool = True):
+                 fused_initial: bool = True, nd: int = 2):
         super().__init__()
         self.depths, self.channels = tuple(depths), tuple(channels)
         self.fused_initial = fused_initial
-        self.stem_conv = nn.Conv2d(in_channels, channels[0], 4, stride=4)
+        conv = conv_nd(nd)
+        self.stem_conv = conv(in_channels, channels[0], 4, stride=4)
         self.stem_norm = _ChannelLayerNorm(channels[0], eps=1e-6)
         total, sid = sum(depths), 0
         for i, (depth, ch) in enumerate(zip(depths, channels)):
             if i > 0:
                 setattr(self, f'down{i}_norm', _ChannelLayerNorm(channels[i - 1], eps=1e-6))
-                setattr(self, f'down{i}_conv', nn.Conv2d(channels[i - 1], ch, 2, stride=2))
+                setattr(self, f'down{i}_conv', conv(channels[i - 1], ch, 2, stride=2))
             for j in range(depth):
                 sd = stochastic_depth_prob * sid / max(total - 1., 1.)
                 setattr(self, f'stage{i}_block{j}',
-                        CNBlock(ch, None if v2 else layer_scale, sd, v2=v2))
+                        CNBlock(ch, None if v2 else layer_scale, sd, v2=v2, nd=nd))
                 sid += 1
         self.out_channels = ([] if fused_initial else [channels[0]]) + list(channels)
         self.out_strides = ([] if fused_initial else [4]) + \
             [4 * 2 ** i for i in range(len(channels))]
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        if x.dim() != 4:
-            raise NotImplementedError('3-D ConvNeXt inputs are not ported yet')
         x = self.stem_norm(self.stem_conv(same_padding(x, 4, 4)))
         features = {}
         if not self.fused_initial:
@@ -133,7 +141,6 @@ class ConvNeXtEncoder(nn.Module):
 
 def _convnext(depths, channels, v2=False):
     def ctor(in_channels, out_channels=0, fused_initial=True, pretrained=False, **kwargs):
-        kwargs.pop('nd', None)
         return ConvNeXtEncoder(in_channels=in_channels, depths=depths, channels=channels,
                                v2=v2, fused_initial=fused_initial, **kwargs)
     return ctor

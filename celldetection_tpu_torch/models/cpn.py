@@ -45,7 +45,7 @@ from . import fpn as fpn_lib
 from . import manet as manet_lib
 from . import resnet as resnet_lib
 from . import unet as unet_lib
-from .host_encoder import build_host_encoder, resolve_native_encoder
+from .host_encoder import resolve_encoder
 from .commons import Dropout2d, FusableReadOut, Fuse, ReadOut, ScaledTanh, fused_head_conv
 
 __all__ = ['CPNCore', 'CPN', 'cpn_decode', 'cpn_compute_loss', 'DEFAULT_WEIGHTS',
@@ -53,11 +53,27 @@ __all__ = ['CPNCore', 'CPN', 'cpn_decode', 'cpn_compute_loss', 'DEFAULT_WEIGHTS'
            'CpnSlimU22', 'CpnWideU22', 'CpnResUNet', 'CpnU17', 'CpnU12']
 
 
-def _level_channels(backbone_channels, key) -> int:
-    """Channels of the decoder level ``key`` (``'0'``, ``'1'``, ...)."""
-    if not (isinstance(key, str) and key.isdigit()):
-        raise NotImplementedError(f'head feature {key!r}: only decoder levels are ported '
-                                  f'(encoder features are not)')
+ENCODER_PREFIX = 'encoder.'
+
+
+def _level_channels(backbone_channels, encoder_channels, key) -> int:
+    """Channels of the map ``key``: decoder level ``'<k>'`` or encoder level
+    ``'encoder.<k>'`` (a backbone's ``keep_features`` outputs)."""
+    if isinstance(key, str) and key.startswith(ENCODER_PREFIX):
+        if encoder_channels is None:
+            raise ValueError(f'head feature {key!r}: the backbone gives no encoder levels')
+        return encoder_channels[int(key[len(ENCODER_PREFIX):])]
+    return backbone_channels[int(key)]
+
+
+def _fuse_channels(backbone_channels, keys) -> int:
+    """The ``Fuse`` output channels of a tuple of keys, as the JAX package's
+    ``_resolve_channels`` gives them: the first key's, where an
+    ``'encoder.<k>'`` key counts decoder level k's channels (the JAX CPN
+    passes no encoder channels, so they default to the decoder's)."""
+    key = keys[0]
+    if isinstance(key, str) and key.startswith(ENCODER_PREFIX):
+        key = key[len(ENCODER_PREFIX):]
     return backbone_channels[int(key)]
 
 
@@ -68,10 +84,13 @@ class CPNCore(nn.Module):
     ``locations [B,h,w,2]``, ``fourier [B,h,w,order*4]``, ``refinement
     [B,H,W,2*buckets]`` (input resolution) or None, ``uncertainty [B,h,w,4]``
     (sigmoid) or None. Convolutions run NCHW; with NHWC input they keep
-    channels-last strides. A head reads one decoder level (``'0'``, ``'1'``,
-    ...) or, for a tuple or list of levels, their fusion by a
+    channels-last strides. A head reads one map, a decoder level (``'0'``,
+    ``'1'``, ...) or an encoder level (``'encoder.0'``, ..., of
+    ``encoder_channels``), or, for a tuple or list of keys, their fusion by a
     :class:`.commons.Fuse` named ``<head>_fuse`` (the refinement's
-    ``refinement_fuse``), which keeps the first level's channels.
+    ``refinement_fuse``), whose output has the first key's decoder level's
+    channels, as in the JAX package. The contour heads fuse their first
+    convolutions when they read the very same map (the JAX rule).
     """
 
     def __init__(self, backbone: nn.Module, backbone_channels, order: int, score_channels: int,
@@ -84,11 +103,12 @@ class CPNCore(nn.Module):
                  refinement_full_res: bool = True, kernel_size_score: int = 7,
                  kernel_size_location: int = 7, kernel_size_fourier: int = 7,
                  kernel_size_refinement: int = 7, kernel_size_uncertainty: int = 7,
-                 head_activation='relu'):
+                 head_activation='relu', encoder_channels=None):
         super().__init__()
         if refinement_buckets < 1:
             raise ValueError(f'refinement_buckets={refinement_buckets}: at least 1')
         self.backbone = backbone
+        self.encoder_channels = None if encoder_channels is None else tuple(encoder_channels)
         specs = [('score', score_features, score_channels, kernel_size_score, None),
                  ('location', location_features, 2, kernel_size_location, None),
                  ('fourier', contour_features, order * 4, kernel_size_fourier, None)]
@@ -101,11 +121,14 @@ class CPNCore(nn.Module):
                 self._head_input(name, keys, backbone_channels), out_c, kernel_size=ksize,
                 channels_mid=contour_head_channels, stride=contour_head_stride,
                 activation=head_activation, final_activation=final))
-        # The contour heads fuse into one conv when they read the same single
-        # level with the same geometry (always, at the defaults).
+        # The contour heads fuse into one conv when they read the same map with
+        # the same geometry (always, at the defaults): one key here, or in
+        # forward keys that name one tensor (a U-Net's deepest decoder level
+        # is its deepest encoder level), as the JAX package decides.
         keys = [k for _, k, *_ in self.specs]
-        self.fusable = all(isinstance(k, str) for k in keys) and len(set(keys)) == 1 and \
-            len({s[3] for s in self.specs}) == 1
+        self.same_geometry = len({s[3] for s in self.specs}) == 1 and \
+            not any(isinstance(k, (tuple, list)) for k in keys)
+        self.fusable = self.same_geometry and len(set(keys)) == 1
         self.refinement_features = refinement_features
         self.refinement_interpolation = refinement_interpolation
         self.refinement_full_res = refinement_full_res
@@ -117,12 +140,21 @@ class CPNCore(nn.Module):
             final_activation=ScaledTanh(refinement_margin)) if refinement else None
 
     def _head_input(self, name: str, keys, backbone_channels) -> int:
-        """The head's input channels; adds ``<name>_fuse`` for several levels."""
+        """The head's input channels; adds ``<name>_fuse`` for several keys."""
         if not isinstance(keys, (tuple, list)):
-            return _level_channels(backbone_channels, keys)
-        channels = [_level_channels(backbone_channels, k) for k in keys]
-        setattr(self, f'{name}_fuse', Fuse(sum(channels), channels[0]))
-        return channels[0]
+            return _level_channels(backbone_channels, self.encoder_channels, keys)
+        channels = [_level_channels(backbone_channels, self.encoder_channels, k) for k in keys]
+        out = _fuse_channels(backbone_channels, keys)
+        setattr(self, f'{name}_fuse', Fuse(sum(channels), out))
+        return out
+
+    def _one_map(self, features) -> bool:
+        """Whether the contour heads read one map with one geometry: one key,
+        or keys that name the same tensor (the JAX package's rule)."""
+        if self.fusable or not self.same_geometry:
+            return self.fusable
+        first = features[self.specs[0][1]]
+        return all(features[k] is first for _, k, *_ in self.specs)
 
     def _features(self, features, name: str, keys) -> torch.Tensor:
         if isinstance(keys, (tuple, list)):
@@ -133,7 +165,7 @@ class CPNCore(nn.Module):
         x = inputs.permute(0, 3, 1, 2)
         features = self.backbone(x)
         heads = [getattr(self, f'{name}_head') for name, *_ in self.specs]
-        if self.fusable:
+        if self._one_map(features):
             x0 = features[self.specs[0][1]]
             mid = fused_head_conv(x0, [h.conv0 for h in heads], heads[0].stride,
                                   heads[0].padding)
@@ -439,7 +471,8 @@ class CPN(nn.Module):
         uncertainty_factor: Scale of the box-uncertainty loss.
         contour_features, location_features, score_features,
         uncertainty_features, refinement_features: Each head's decoder
-            level, or a tuple or list of levels to fuse (:class:`CPNCore`).
+            level (``'1'``) or encoder level (``'encoder.1'``), or a tuple or
+            list of them to fuse (:class:`CPNCore`).
         compute_dtype: e.g. ``torch.bfloat16``: the parameters (fp32) and the
             input are cast for the backbone and heads, and decoding runs in
             fp32, except the refinement field, which stays in that dtype.
@@ -495,6 +528,7 @@ class CPN(nn.Module):
             self.order_weights = torch.as_tensor(order_weights, dtype=torch.float32)
         self.core = CPNCore(
             backbone, tuple(backbone.feature_channels), order, self.score_channels,
+            encoder_channels=getattr(backbone, 'encoder_channels', None),
             refinement=refinement, refinement_margin=refinement_margin,
             uncertainty_head=uncertainty_head, contour_features=contour_features,
             location_features=location_features, uncertainty_features=uncertainty_features,
@@ -708,10 +742,20 @@ def _make_cpn(backbone_fn, in_channels, backbone_kwargs=None, device=None, name=
     ``backbone_kwargs`` loads the encoder's ImageNet weights."""
     device = resolve_device(device)   # fail before building on a card-less host
     backbone_kwargs = dict(backbone_kwargs or {})
+    _check_2d(name, backbone_kwargs)
     pretrained = backbone_kwargs.pop('pretrained', False)
     backbone = backbone_fn(in_channels, 0, backbone_kwargs=dict(backbone_kwargs))
     return _finish_cpn(backbone, name, device, in_channels, backbone_kwargs, torch_init, seed,
                        pretrained, **kwargs)
+
+
+def _check_2d(name, backbone_kwargs):
+    """The CPN decode is 2-D in both packages: a backbone of another rank is refused here."""
+    nd = backbone_kwargs.get('nd', 2)
+    if nd != 2:
+        raise ValueError(f'{name or "CPN"}: backbone_kwargs nd={nd}; the CPN decodes 2-D '
+                         f'contours, so only its backbone blocks run 3-D (build them alone, '
+                         f"e.g. models.U22(1, 2, nd=3))")
 
 
 def _finish_cpn(backbone, name, device, in_channels, backbone_kwargs, torch_init, seed,
@@ -773,17 +817,6 @@ def _manet_backbone(resnet_ctor):
     return ctor
 
 
-def _resolve_encoder(adapter, model_name, in_channels, pretrained, backbone_kwargs):
-    """The native encoder of a timm/smp name, else the timm or smp encoder
-    (``backbone_kwargs={'force_host': True}`` skips the native one)."""
-    bk = dict(backbone_kwargs or {})
-    if not bk.pop('force_host', False):
-        native = resolve_native_encoder(model_name, in_channels, backbone_kwargs=bk)
-        if native is not None:
-            return native, True
-    return build_host_encoder(adapter, model_name, in_channels, pretrained, bk), False
-
-
 def _register_host_cpns():
     """``CpnTimmUNet``, ``CpnSmpUNet``, ``CpnTimmMaNet``, ``CpnSmpMaNet`` and
     ``CpnMiTB5MaNet`` (smp's ``mit_b5``): a native encoder for a name of
@@ -794,8 +827,9 @@ def _register_host_cpns():
                  torch_init: bool = True, seed: int = 0, **kwargs):
             device = resolve_device(device)
             bk = dict(backbone_kwargs or {})
+            _check_2d(cpn_name, bk)
             pretrained = bk.pop('pretrained', False)
-            body, native = _resolve_encoder(adapter, model_name, in_channels, pretrained, bk)
+            body, native = resolve_encoder(adapter, model_name, in_channels, pretrained, bk)
             if decoder == 'UNet':
                 backbone = unet_lib.UNet(body=body, in_channels_list=list(body.out_channels),
                                          in_strides_list=list(body.out_strides))

@@ -8,7 +8,7 @@ encoder: the features of each dense block, before its transition.
 Module names are the JAX package's (torchvision's, with each norm's
 parameters one level down in ``norm``): ``conv0``, ``norm0.norm``,
 ``denseblock<i>.denselayer<j>.{norm1.norm,conv1,norm2.norm,conv2}``,
-``transition<i>.{norm.norm,conv}``.
+``transition<i>.{norm.norm,conv}``. ``nd=3`` builds it for NCDHW volumes.
 """
 from typing import Dict, Sequence
 
@@ -16,19 +16,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .commons import NamedNorm
+from .commons import NamedNorm, conv_nd, max_pool_nd
 
 __all__ = ['DenseNet', 'DenseNetEncoder', 'DenseNet121', 'DenseNet161', 'DenseNet169',
            'DenseNet201']
 
 
 class _DenseLayer(nn.Module):
-    def __init__(self, in_channels: int, growth_rate: int, bn_size: int = 4):
+    def __init__(self, in_channels: int, growth_rate: int, bn_size: int = 4, nd: int = 2):
         super().__init__()
         self.norm1 = NamedNorm(in_channels)
-        self.conv1 = nn.Conv2d(in_channels, bn_size * growth_rate, 1, bias=False)
+        self.conv1 = conv_nd(nd)(in_channels, bn_size * growth_rate, 1, bias=False)
         self.norm2 = NamedNorm(bn_size * growth_rate)
-        self.conv2 = nn.Conv2d(bn_size * growth_rate, growth_rate, 3, padding=1, bias=False)
+        self.conv2 = conv_nd(nd)(bn_size * growth_rate, growth_rate, 3, padding=1, bias=False)
 
     def forward(self, x):
         out = self.conv1(F.relu(self.norm1(x)))
@@ -37,12 +37,13 @@ class _DenseLayer(nn.Module):
 
 
 class _DenseBlock(nn.Module):
-    def __init__(self, num_layers: int, in_channels: int, growth_rate: int, bn_size: int = 4):
+    def __init__(self, num_layers: int, in_channels: int, growth_rate: int, bn_size: int = 4,
+                 nd: int = 2):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             setattr(self, f'denselayer{i + 1}',
-                    _DenseLayer(in_channels + i * growth_rate, growth_rate, bn_size))
+                    _DenseLayer(in_channels + i * growth_rate, growth_rate, bn_size, nd))
 
     def forward(self, x):
         for i in range(self.num_layers):
@@ -51,13 +52,14 @@ class _DenseBlock(nn.Module):
 
 
 class _Transition(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, nd: int = 2):
         super().__init__()
         self.norm = NamedNorm(in_channels)
-        self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+        self.conv = conv_nd(nd)(in_channels, out_channels, 1, bias=False)
+        self.pool = nn.AvgPool2d(2, 2) if nd == 2 else nn.AvgPool3d(2, 2)
 
     def forward(self, x):
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
+        return self.pool(self.conv(F.relu(self.norm(x))))
 
 
 class DenseNetEncoder(nn.Module):
@@ -65,26 +67,25 @@ class DenseNetEncoder(nn.Module):
 
     def __init__(self, in_channels: int = 3, growth_rate: int = 32,
                  block_config: Sequence[int] = (6, 12, 24, 16), init_features: int = 64,
-                 bn_size: int = 4):
+                 bn_size: int = 4, nd: int = 2):
         super().__init__()
         self.block_config = tuple(block_config)
-        self.conv0 = nn.Conv2d(in_channels, init_features, 7, stride=2, padding=3, bias=False)
+        self.conv0 = conv_nd(nd)(in_channels, init_features, 7, stride=2, padding=3, bias=False)
+        self.pool0 = max_pool_nd(nd)(3, 2, 1)
         self.norm0 = NamedNorm(init_features)
         c = init_features
         self.out_channels = []
         for i, n in enumerate(block_config):
-            setattr(self, f'denseblock{i + 1}', _DenseBlock(n, c, growth_rate, bn_size))
+            setattr(self, f'denseblock{i + 1}', _DenseBlock(n, c, growth_rate, bn_size, nd))
             c += n * growth_rate
             self.out_channels.append(c)
             if i != len(block_config) - 1:
-                setattr(self, f'transition{i + 1}', _Transition(c, c // 2))
+                setattr(self, f'transition{i + 1}', _Transition(c, c // 2, nd))
                 c //= 2
         self.out_strides = [4 * 2 ** i for i in range(len(block_config))]
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        if x.dim() != 4:
-            raise NotImplementedError('3-D DenseNet inputs are not ported yet')
-        x = F.max_pool2d(F.relu(self.norm0(self.conv0(x))), 3, 2, 1)
+        x = self.pool0(F.relu(self.norm0(self.conv0(x))))
         features = {}
         for i in range(len(self.block_config)):
             x = getattr(self, f'denseblock{i + 1}')(x)
@@ -95,10 +96,10 @@ class DenseNetEncoder(nn.Module):
 
 
 def _densenet(growth, config, init_feat):
-    def ctor(in_channels, out_channels=0, pretrained=False, **kwargs):
-        # the JAX package's constructors take no encoder options
+    def ctor(in_channels, out_channels=0, pretrained=False, nd: int = 2, **kwargs):
+        # the JAX package's constructors take no encoder options but the rank
         return DenseNetEncoder(in_channels=in_channels, growth_rate=growth, block_config=config,
-                               init_features=init_feat)
+                               init_features=init_feat, nd=nd)
     return ctor
 
 

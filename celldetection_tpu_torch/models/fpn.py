@@ -7,8 +7,10 @@ ResNet-family FPNs (129-138).
 
 Top-down: a 1x1 inner ``ConvNorm`` per level, nearest upsample and add, a
 3x3 layer ``ConvNorm``, and an extra level ``'pool'``, a max-pool of kernel 1
-and stride 2 of the coarsest output. Module names are the reference layout
-(``fpn.inner_blocks.<i>.0``, ``fpn.layer_blocks.<i>.0``).
+and stride 2 of the coarsest output, at the maps' rank. Module names are the
+reference layout (``fpn.inner_blocks.<i>.0``, ``fpn.layer_blocks.<i>.0``).
+Every module takes ``nd`` (3 for NCDHW volumes); the constructors read it
+from their arguments or from ``backbone_kwargs``.
 """
 from typing import Dict, Optional, Sequence
 
@@ -36,14 +38,14 @@ class FeaturePyramidNetwork(nn.Module):
     """
 
     def __init__(self, in_channels_list: Sequence[int], out_channels: int = 256,
-                 norm_layer: Optional[str] = None, extra_maxpool: bool = True):
+                 norm_layer: Optional[str] = None, extra_maxpool: bool = True, nd: int = 2):
         super().__init__()
         self.extra_maxpool = extra_maxpool
         self.inner_blocks = nn.ModuleList(
-            ConvNorm(c, out_channels, 1, padding=0, norm_layer=norm_layer)
+            ConvNorm(c, out_channels, 1, padding=0, norm_layer=norm_layer, nd=nd)
             for c in in_channels_list)
         self.layer_blocks = nn.ModuleList(
-            ConvNorm(out_channels, out_channels, 3, norm_layer=norm_layer)
+            ConvNorm(out_channels, out_channels, 3, norm_layer=norm_layer, nd=nd)
             for _ in in_channels_list)
 
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -57,7 +59,8 @@ class FeaturePyramidNetwork(nn.Module):
             results.insert(0, self.layer_blocks[i](last_inner))
         out = dict(zip(names, results))
         if self.extra_maxpool:
-            out['pool'] = F.max_pool2d(results[-1], 1, 2)
+            pool = F.max_pool2d if results[-1].dim() == 4 else F.max_pool3d
+            out['pool'] = pool(results[-1], 1, 2)
         return out
 
 
@@ -65,11 +68,11 @@ class BackboneWithFPN(nn.Module):
     """Normalize → encoder ``body`` → ``fpn``."""
 
     def __init__(self, body: nn.Module, out_channels: int = 256, normalize: bool = True,
-                 inputs_mean=0., inputs_std=1., norm_layer: Optional[str] = None):
+                 inputs_mean=0., inputs_std=1., norm_layer: Optional[str] = None, nd: int = 2):
         super().__init__()
         self.normalize = Normalize(inputs_mean, inputs_std) if normalize else None
         self.body = body
-        self.fpn = FeaturePyramidNetwork(body.out_channels, out_channels, norm_layer)
+        self.fpn = FeaturePyramidNetwork(body.out_channels, out_channels, norm_layer, nd=nd)
         self.out_channels = out_channels
 
     @property
@@ -95,7 +98,9 @@ def _res_fpn(resnet_ctor):
         warn_dropped_pretrained(pretrained)
         bk = dict(fused_initial=False)
         bk.update(backbone_kwargs or {})
-        return FPN(resnet_ctor(in_channels, **bk), channels=fpn_channels or 256, **kwargs)
+        bk['nd'] = kwargs.pop('nd', bk.get('nd', 2))
+        return FPN(resnet_ctor(in_channels, **bk), channels=fpn_channels or 256, nd=bk['nd'],
+                   **kwargs)
     return ctor
 
 
@@ -103,8 +108,10 @@ def _enc_fpn(encoder_ctor):
     def ctor(in_channels, fpn_channels: int = 256, backbone_kwargs: dict = None,
              pretrained=False, **kwargs):
         warn_dropped_pretrained(pretrained)
-        return FPN(encoder_ctor(in_channels, **(backbone_kwargs or {})),
-                   channels=fpn_channels or 256, **kwargs)
+        bk = dict(backbone_kwargs or {})
+        bk['nd'] = kwargs.pop('nd', bk.get('nd', 2))
+        return FPN(encoder_ctor(in_channels, **bk), channels=fpn_channels or 256, nd=bk['nd'],
+                   **kwargs)
     return ctor
 
 

@@ -9,7 +9,7 @@ timm and smp are imported only when a name outside the native table asks
 for them.
 """
 __all__ = ['NATIVE_ENCODER_NAMES', 'normalize_encoder_name', 'resolve_native_encoder',
-           'build_host_encoder']
+           'build_host_encoder', 'resolve_encoder']
 
 # timm / smp encoder names with a native encoder in this package (smp's
 # 'timm-' and 'tu-' prefixes are stripped before the lookup)
@@ -72,3 +72,16 @@ def build_host_encoder(adapter: str, model_name: str, in_channels: int = 3,
         raise ValueError(f'Unknown host adapter: {adapter!r}')
     enc.requires_grad_(bool(trainable))
     return enc
+
+
+def resolve_encoder(adapter: str, model_name: str, in_channels: int = 3, pretrained: bool = False,
+                    backbone_kwargs: dict = None):
+    """``(encoder, native)``: the port's native encoder of a timm/smp name, else
+    timm's or smp's (``backbone_kwargs={'force_host': True}`` skips the native
+    one), as the JAX package's CPN and MaNet constructors resolve a name."""
+    bk = dict(backbone_kwargs or {})
+    if not bk.pop('force_host', False):
+        native = resolve_native_encoder(model_name, in_channels, backbone_kwargs=bk)
+        if native is not None:
+            return native, True
+    return build_host_encoder(adapter, model_name, in_channels, pretrained, bk), False

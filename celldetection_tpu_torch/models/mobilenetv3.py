@@ -13,6 +13,8 @@ Batch norms take torchvision's eps 1e-3 and torch momentum 0.01 (flax's
 striding for dilation 2. Module names are the JAX package's (``stem``,
 ``stem_bn.norm``, ``block<i>.{expand,expand_bn.norm,dw,dw_bn.norm,se.fc1,
 se.fc2,project,project_bn.norm}``, ``lastconv``, ``lastconv_bn.norm``).
+``nd=3`` builds it for NCDHW volumes: every stride-2 block halves all three
+spatial dims.
 """
 from typing import Dict, Sequence
 
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .commons import NamedNorm
+from .commons import NamedNorm, conv_nd
 
 __all__ = ['MobileNetV3Large', 'MobileNetV3Small', 'MobileNetV3Encoder']
 
@@ -37,34 +39,37 @@ def _make_divisible(v, divisor=8):
 
 
 class _SqueezeExcitation(nn.Module):
-    def __init__(self, channels: int, squeeze_channels: int):
+    def __init__(self, channels: int, squeeze_channels: int, nd: int = 2):
         super().__init__()
-        self.fc1 = nn.Conv2d(channels, squeeze_channels, 1)
-        self.fc2 = nn.Conv2d(squeeze_channels, channels, 1)
+        self.fc1 = conv_nd(nd)(channels, squeeze_channels, 1)
+        self.fc2 = conv_nd(nd)(squeeze_channels, channels, 1)
 
     def forward(self, x):
-        scale = self.fc2(F.relu(self.fc1(x.mean((2, 3), keepdim=True))))
+        scale = self.fc2(F.relu(self.fc1(x.mean(tuple(range(2, x.dim())), keepdim=True))))
         return x * F.hardsigmoid(scale)
 
 
 class _InvertedResidual(nn.Module):
-    def __init__(self, in_channels, kernel, expanded, out_c, use_se, use_hs, stride, dilation=1):
+    def __init__(self, in_channels, kernel, expanded, out_c, use_se, use_hs, stride, dilation=1,
+                 nd=2):
         super().__init__()
+        conv = conv_nd(nd)
         self.act = F.hardswish if use_hs else F.relu
         # torchvision: dilation replaces striding in the dilated tail
         stride = 1 if dilation > 1 else stride
         self.use_res = stride == 1 and in_channels == out_c
         if expanded != in_channels:
-            self.expand = nn.Conv2d(in_channels, expanded, 1, bias=False)
+            self.expand = conv(in_channels, expanded, 1, bias=False)
             self.expand_bn = _bn(expanded)
         else:
             self.expand = self.expand_bn = None
-        self.dw = nn.Conv2d(expanded, expanded, kernel, stride=stride,
-                            padding=(kernel // 2) * dilation, dilation=dilation, groups=expanded,
-                            bias=False)
+        self.dw = conv(expanded, expanded, kernel, stride=stride,
+                       padding=(kernel // 2) * dilation, dilation=dilation, groups=expanded,
+                       bias=False)
         self.dw_bn = _bn(expanded)
-        self.se = _SqueezeExcitation(expanded, _make_divisible(expanded // 4)) if use_se else None
-        self.project = nn.Conv2d(expanded, out_c, 1, bias=False)
+        self.se = _SqueezeExcitation(expanded, _make_divisible(expanded // 4), nd) \
+            if use_se else None
+        self.project = conv(expanded, out_c, 1, bias=False)
         self.project_bn = _bn(out_c)
 
     def forward(self, x):
@@ -131,10 +136,10 @@ class MobileNetV3Encoder(nn.Module):
     tail keeps the previous level's stride."""
 
     def __init__(self, settings: Sequence[tuple] = tuple(_tail_settings(_LARGE, False, False)),
-                 in_channels: int = 3, stem_channels: int = 16):
+                 in_channels: int = 3, stem_channels: int = 16, nd: int = 2):
         super().__init__()
         self.settings = [tuple(s) for s in settings]
-        self.stem = nn.Conv2d(in_channels, stem_channels, 3, stride=2, padding=1, bias=False)
+        self.stem = conv_nd(nd)(in_channels, stem_channels, 3, stride=2, padding=1, bias=False)
         self.stem_bn = _bn(stem_channels)
         cur = stem_channels
         self.out_channels, self.out_strides, stride = [], [], 2
@@ -143,17 +148,15 @@ class MobileNetV3Encoder(nn.Module):
                 self.out_channels.append(cur)
                 self.out_strides.append(stride)
                 stride *= 1 if d > 1 else 2
-            setattr(self, f'block{i}', _InvertedResidual(cur, k, e, o, se, hs, s, d))
+            setattr(self, f'block{i}', _InvertedResidual(cur, k, e, o, se, hs, s, d, nd))
             cur = o
         last = 6 * self.settings[-1][2]
-        self.lastconv = nn.Conv2d(cur, last, 1, bias=False)
+        self.lastconv = conv_nd(nd)(cur, last, 1, bias=False)
         self.lastconv_bn = _bn(last)
         self.out_channels.append(last)
         self.out_strides.append(stride)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        if x.dim() != 4:
-            raise NotImplementedError('3-D MobileNetV3 inputs are not ported yet')
         x = F.hardswish(self.stem_bn(self.stem(x)))
         features = {}
         for i, s in enumerate(self.settings):
@@ -166,10 +169,10 @@ class MobileNetV3Encoder(nn.Module):
 
 def _mobilenet(settings):
     def ctor(in_channels, out_channels=0, pretrained=False, width_mult: float = 1.0,
-             reduced_tail: bool = False, dilated: bool = False, **kwargs):
+             reduced_tail: bool = False, dilated: bool = False, nd: int = 2, **kwargs):
         conf = _scale_settings(_tail_settings(settings, reduced_tail, dilated), width_mult)
         stem = _make_divisible(16 * width_mult) if width_mult != 1.0 else 16
-        return MobileNetV3Encoder(conf, in_channels=in_channels, stem_channels=stem)
+        return MobileNetV3Encoder(conf, in_channels=in_channels, stem_channels=stem, nd=nd)
     return ctor
 
 

@@ -4,7 +4,8 @@ Counterpart of ``celldetection_tpu/models/ppm.py:17-33``. Each scale ``s``
 average-pools with window and stride ``max(side // s, 1)``, as the JAX
 package does (not ``adaptive_avg_pool2d``): the pooled side is
 ``floor(side / (side // s))``. A 1x1 ``ConvNormRelu`` (``scale<i>``), a
-bilinear resize back, and the input concatenated first.
+bilinear resize back, and the input concatenated first. With ``nd=3`` it
+pools NCDHW maps to ``s^3`` and resizes back trilinearly.
 """
 from typing import Sequence
 
@@ -22,12 +23,13 @@ class Ppm(nn.Module):
     """Pool at several scales, 1x1 conv, upsample, concatenate with the input."""
 
     def __init__(self, in_channels: int, out_channels: int = 64,
-                 scales: Sequence[int] = (1, 2, 3, 6)):
+                 scales: Sequence[int] = (1, 2, 3, 6), nd: int = 2):
         super().__init__()
         self.scales = tuple(scales)
+        self.pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
         for i in range(len(self.scales)):
             setattr(self, f'scale{i}', ConvNormRelu(in_channels, out_channels, kernel_size=1,
-                                                    padding=0))
+                                                    padding=0, nd=nd))
         self.out_channels = in_channels + len(self.scales) * out_channels
 
     def forward(self, x):
@@ -35,6 +37,6 @@ class Ppm(nn.Module):
         outs = [x]
         for i, s in enumerate(self.scales):
             win = tuple(max(d // s, 1) for d in spatial)
-            pooled = getattr(self, f'scale{i}')(F.avg_pool2d(x, win, win))
+            pooled = getattr(self, f'scale{i}')(self.pool(x, win, win))
             outs.append(interpolate_nchw(pooled, spatial, 'bilinear'))
         return torch.cat(outs, 1)

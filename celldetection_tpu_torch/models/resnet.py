@@ -17,14 +17,16 @@ weights. Module names are the reference torch layout that
 ``fused_initial=False`` ``body.0`` is the stem (conv, bn, relu), ``body.1``
 is ``Sequential(MaxPool2d(3, 2, 1), layer1)`` and ``body.2..4`` are
 layer2..4; with ``fused_initial=True`` ``body.0`` is ``Sequential(conv, bn,
-relu, pool, layer1)`` and ``body.1..3`` are layer2..4.
+relu, pool, layer1)`` and ``body.1..3`` are layer2..4. ``nd=3`` builds the
+same encoder for NCDHW volumes (``Conv3d``, the stem's 7^3 convolution, a
+3-D max-pool), as the JAX package runs it on 5-D input.
 """
 from typing import Dict, Sequence
 
 import torch
 from torch import nn
 
-from .commons import Norm
+from .commons import Norm, conv_nd, max_pool_nd
 from .ppm import Ppm
 
 __all__ = ['BasicBlock', 'Bottleneck', 'ResNetEncoder', 'ResNet18', 'ResNet34', 'ResNet50',
@@ -33,8 +35,8 @@ __all__ = ['BasicBlock', 'Bottleneck', 'ResNetEncoder', 'ResNet18', 'ResNet34', 
            'ResNeXt152_32x8d', 'WideResNet50_2', 'WideResNet101_2']
 
 
-def _downsample(in_channels, out_channels, stride, norm_layer):
-    return nn.Sequential(nn.Conv2d(in_channels, out_channels, 1, stride=stride, bias=False),
+def _downsample(in_channels, out_channels, stride, norm_layer, nd):
+    return nn.Sequential(conv_nd(nd)(in_channels, out_channels, 1, stride=stride, bias=False),
                          Norm(out_channels, norm_layer))
 
 
@@ -43,15 +45,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
-                 norm_layer: str = 'batchnorm2d', kernel_size: int = 3):
+                 norm_layer: str = 'batchnorm2d', kernel_size: int = 3, nd: int = 2):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, planes, kernel_size, stride=stride,
-                               padding=(kernel_size - 1) // 2, bias=False)
+        conv = conv_nd(nd)
+        self.conv1 = conv(in_channels, planes, kernel_size, stride=stride,
+                          padding=(kernel_size - 1) // 2, bias=False)
         self.bn1 = Norm(planes, norm_layer)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = conv(planes, planes, 3, padding=1, bias=False)
         self.bn2 = Norm(planes, norm_layer)
         self.relu = nn.ReLU()
-        self.downsample = _downsample(in_channels, planes, stride, norm_layer) \
+        self.downsample = _downsample(in_channels, planes, stride, norm_layer, nd) \
             if stride != 1 or in_channels != planes else None
 
     def forward(self, x):
@@ -65,19 +68,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1, groups: int = 1,
-                 base_width: int = 64, norm_layer: str = 'batchnorm2d', kernel_size: int = 3):
+                 base_width: int = 64, norm_layer: str = 'batchnorm2d', kernel_size: int = 3,
+                 nd: int = 2):
         super().__init__()
         width = int(planes * (base_width / 64.)) * groups
         out_c = planes * self.expansion
-        self.conv1 = nn.Conv2d(in_channels, width, 1, bias=False)
+        conv = conv_nd(nd)
+        self.conv1 = conv(in_channels, width, 1, bias=False)
         self.bn1 = Norm(width, norm_layer)
-        self.conv2 = nn.Conv2d(width, width, kernel_size, stride=stride,
-                               padding=(kernel_size - 1) // 2, groups=groups, bias=False)
+        self.conv2 = conv(width, width, kernel_size, stride=stride,
+                          padding=(kernel_size - 1) // 2, groups=groups, bias=False)
         self.bn2 = Norm(width, norm_layer)
-        self.conv3 = nn.Conv2d(width, out_c, 1, bias=False)
+        self.conv3 = conv(width, out_c, 1, bias=False)
         self.bn3 = Norm(out_c, norm_layer)
         self.relu = nn.ReLU()
-        self.downsample = _downsample(in_channels, out_c, stride, norm_layer) \
+        self.downsample = _downsample(in_channels, out_c, stride, norm_layer, nd) \
             if stride != 1 or in_channels != out_c else None
 
     def forward(self, x):
@@ -87,13 +92,13 @@ class Bottleneck(nn.Module):
         return self.relu(self.bn3(self.conv3(out)) + identity)
 
 
-def _res_layer(block, in_channels, planes, blocks, stride, groups, base_width, norm_layer):
+def _res_layer(block, in_channels, planes, blocks, stride, groups, base_width, norm_layer, nd):
     """``blocks`` residual blocks; the first may stride and downsample."""
     kw = dict(groups=groups, base_width=base_width) if block is Bottleneck else {}
     layers = []
     for i in range(blocks):
         layers.append(block(in_channels, planes, stride if i == 0 else 1,
-                            norm_layer=norm_layer, **kw))
+                            norm_layer=norm_layer, nd=nd, **kw))
         in_channels = planes * block.expansion
     return nn.Sequential(*layers)
 
@@ -113,17 +118,17 @@ class ResNetEncoder(nn.Sequential):
                  base_width: int = 64, fused_initial: bool = True, initial_strides: int = 2,
                  initial_pooling: bool = True, norm_layer: str = 'batchnorm2d',
                  secondary_block=None, pyramid_pooling: bool = False,
-                 pyramid_pooling_channels: int = 64):
+                 pyramid_pooling_channels: int = 64, nd: int = 2):
         block = Bottleneck if bottleneck else BasicBlock
-        stem = [nn.Conv2d(in_channels, base_channel, 7, stride=initial_strides, padding=3,
-                          bias=False),
+        stem = [conv_nd(nd)(in_channels, base_channel, 7, stride=initial_strides, padding=3,
+                            bias=False),
                 Norm(base_channel, norm_layer), nn.ReLU()]
-        pool = nn.MaxPool2d(3, 2, 1) if initial_pooling else nn.Identity()
+        pool = max_pool_nd(nd)(3, 2, 1) if initial_pooling else nn.Identity()
         stages, prev = [], base_channel
         for i, blocks in enumerate(layers):
             planes = base_channel * 2 ** i
             stages.append(_res_layer(block, prev, planes, blocks, 1 if i == 0 else 2, groups,
-                                     base_width, norm_layer))
+                                     base_width, norm_layer, nd))
             prev = planes * block.expansion
         if fused_initial:
             super().__init__(nn.Sequential(*stem, pool, stages[0]), *stages[1:])
@@ -143,12 +148,10 @@ class ResNetEncoder(nn.Sequential):
             setattr(self, name, secondary_block(base_channel * 2 ** i * e))
         self.ppm = None
         if pyramid_pooling:
-            self.ppm = Ppm(self.out_channels[-1], pyramid_pooling_channels)
+            self.ppm = Ppm(self.out_channels[-1], pyramid_pooling_channels, nd=nd)
             self.out_channels[-1] = self.ppm.out_channels
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        if x.dim() != 4:
-            raise NotImplementedError('3-D ResNet inputs are not ported yet')
         features = {}
         for i in range(self.num_stages):
             x = self[i](x)

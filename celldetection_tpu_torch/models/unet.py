@@ -7,6 +7,10 @@ Counterpart of ``celldetection_tpu/models/unet.py``: ``UNetEncoder`` (28-67),
 (311-343), the ten ResNet-family UNets (346-356) and the ConvNeXt, DenseNet
 and MobileNetV3 UNets (366-377).
 
+Every module takes ``nd`` (2 by default, 3 for volumes: ``U22(1, 2,
+nd=3)``; the backbone UNets read it from their arguments or from
+``backbone_kwargs``), as the JAX package infers the rank from its input.
+
 Module names follow the reference torch layout (``body.<i>``,
 ``unet.inner_blocks.<i>``, ``unet.layer_blocks.<i>``) so that weights from
 ``util.weights.state_dict_from_jax`` load with ``strict=True``.
@@ -22,7 +26,8 @@ from . import convnext as convnext_lib
 from . import densenet as densenet_lib
 from . import mobilenetv3 as mnv3_lib
 from . import resnet as resnet_lib
-from .commons import Normalize, ResBlock, TwoConvNormRelu, get_activation
+from .commons import (Normalize, ResBlock, TwoConvNormRelu, conv_nd, get_activation,
+                      max_pool_nd)
 
 __all__ = ['UNetEncoder', 'GeneralizedUNet', 'BackboneAsUNet', 'UNet', 'U22', 'SlimU22',
            'WideU22', 'U17', 'U12', 'ResUNet', 'ResNet18UNet', 'ResNet34UNet', 'ResNet50UNet',
@@ -38,18 +43,20 @@ class UNetEncoder(nn.Sequential):
 
     ``body.0`` is the first block; ``body.<i>`` for i > 0 is
     ``Sequential(MaxPool2d, block)``, the reference layout. Stage i has
-    ``base_channels * factor**i`` channels at stride ``2**i``.
+    ``base_channels * factor**i`` channels at stride ``2**i``. ``block_cls``
+    is built as ``block_cls(in, out, norm_layer=..., nd=nd)``
+    (``TwoConvNormRelu``, ``ResBlock``, ``BottleneckBlock``).
     """
 
     def __init__(self, in_channels: int = 3, depth: int = 5, base_channels: int = 64,
-                 factor: int = 2, block_cls=None, norm_layer: str = 'batchnorm2d'):
+                 factor: int = 2, block_cls=None, norm_layer: str = 'batchnorm2d', nd: int = 2):
         block_cls = block_cls or TwoConvNormRelu
         out_channels = [base_channels * (factor ** i) for i in range(depth)]
         stages = []
         prev = in_channels
         for out_c in out_channels:
-            block = block_cls(prev, out_c, norm_layer=norm_layer)
-            stages.append(nn.Sequential(nn.MaxPool2d(2), block) if stages else block)
+            block = block_cls(prev, out_c, norm_layer=norm_layer, nd=nd)
+            stages.append(nn.Sequential(max_pool_nd(nd)(2), block) if stages else block)
             prev = out_c
         super().__init__(*stages)
         self.out_channels = out_channels
@@ -75,14 +82,15 @@ class GeneralizedUNet(nn.Module):
     first, so with bridges ``'0'`` names the stride-1 level and the deepest
     decoder level has no key (``zip`` truncates, as in the JAX package).
     ``secondary_block`` (a module class, built as ``secondary_block(channels)``)
-    follows each decoder level's block as ``secondary{i}``.
+    follows each decoder level's block as ``secondary{i}``. ``block_cls`` is
+    built as ``block_cls(in, out, nd=nd, **block_kwargs)``.
     """
 
     def __init__(self, in_channels_list: Sequence[int], out_channels: int = 0, block_cls=None,
                  block_kwargs: Optional[dict] = None, final_activation=None,
                  interpolate: str = 'nearest', in_strides_list: Optional[Sequence[int]] = None,
                  out_channels_list: Optional[Sequence[int]] = None, keep_features: bool = True,
-                 secondary_block=None):
+                 secondary_block=None, nd: int = 2):
         super().__init__()
         block_cls = block_cls or TwoConvNormRelu
         block_kwargs = block_kwargs or {}
@@ -104,20 +112,21 @@ class GeneralizedUNet(nn.Module):
             top_down = inner_inc
             if inner_inc > 0 and inner_ouc < inner_inc:
                 # the JAX package's inner{i+1}, the reference's inner_blocks.<i>
-                self.inner_blocks[str(i)] = nn.Conv2d(inner_inc, inner_ouc, 1)
+                self.inner_blocks[str(i)] = conv_nd(nd)(inner_inc, inner_ouc, 1)
                 top_down = inner_ouc
             if in_list[i] > 0:
-                self.layer_blocks[str(i)] = block_cls(in_list[i] + top_down, out_list[i],
+                self.layer_blocks[str(i)] = block_cls(in_list[i] + top_down, out_list[i], nd=nd,
                                                       **block_kwargs)
             else:
                 self.layer_blocks[str(i)] = TwoConvNormRelu(top_down, out_list[i],
-                                                            use_bias=False, **bridge_kwargs)
+                                                            use_bias=False, nd=nd,
+                                                            **bridge_kwargs)
         # a secondary block (e.g. MambaLayer) after each decoder level: ``secondary{i}``
         self.secondary = None if secondary_block is None else \
             {i: f'secondary{i}' for i in range(depth)}
         for i, name in (self.secondary or {}).items():
             setattr(self, name, secondary_block(out_list[i]))
-        self.out_layer = nn.Conv2d(out_list[0], out_channels, 1) if out_channels > 0 else None
+        self.out_layer = conv_nd(nd)(out_list[0], out_channels, 1) if out_channels > 0 else None
         self.final_activation = None if final_activation is None else \
             get_activation(final_activation)
 
@@ -170,25 +179,31 @@ def _plan(in_channels_list, out_channels_list=None, in_strides_list=None):
 class BackboneAsUNet(nn.Module):
     """Encoder ``body`` + ``GeneralizedUNet`` decoder ``unet`` + input normalization.
 
-    Takes NCHW input; returns the decoder's dict (or map, with ``out_channels``).
+    Takes NCHW (or, with ``nd=3``, NCDHW) input; returns the decoder's dict
+    (or map, with ``out_channels``).
     """
 
     def __init__(self, body: nn.Module, in_channels_list: Sequence[int], out_channels: int = 0,
                  block_cls=None, block_kwargs: Optional[dict] = None, final_activation=None,
                  interpolate: str = 'nearest', in_strides_list: Optional[Sequence[int]] = None,
                  out_channels_list: Optional[Sequence[int]] = None, normalize: bool = True,
-                 inputs_mean=0., inputs_std=1.):
+                 inputs_mean=0., inputs_std=1., nd: int = 2):
         super().__init__()
         self.normalize = Normalize(inputs_mean, inputs_std) if normalize else None
         self.body = body
         self.unet = GeneralizedUNet(in_channels_list, out_channels, block_cls, block_kwargs,
                                     final_activation, interpolate, in_strides_list,
-                                    out_channels_list)
+                                    out_channels_list, nd=nd)
 
     @property
     def feature_channels(self):
         """Per-key decoder output channels (key '0' = finest level)."""
         return self.unet.out_channels_list
+
+    @property
+    def encoder_channels(self):
+        """Channels of the ``encoder.<k>`` outputs: the body's levels."""
+        return list(self.unet.in_list[self.unet.bridges:])
 
     def forward(self, inputs):
         x = inputs if self.normalize is None else self.normalize(inputs)
@@ -200,14 +215,15 @@ class UNet(BackboneAsUNet):
 
 
 def _make_encoder_unet(in_channels, out_channels, base_channels, depth=5, block_cls=None,
-                       final_activation=None, backbone_kwargs=None, **kwargs):
+                       final_activation=None, backbone_kwargs=None, nd=2, **kwargs):
     bk = dict(backbone_kwargs or {})
+    nd = bk.pop('nd', nd)
     encoder = UNetEncoder(in_channels=in_channels, depth=bk.pop('depth', depth),
                           base_channels=bk.pop('base_channels', base_channels),
-                          block_cls=block_cls, **bk)
+                          block_cls=block_cls, nd=nd, **bk)
     return UNet(body=encoder, in_channels_list=encoder.out_channels,
                 in_strides_list=encoder.out_strides, out_channels=out_channels,
-                block_cls=block_cls, final_activation=final_activation, **kwargs)
+                block_cls=block_cls, final_activation=final_activation, nd=nd, **kwargs)
 
 
 def U22(in_channels, out_channels=0, final_activation=None, backbone_kwargs=None, **kwargs):
@@ -269,10 +285,12 @@ def _backbone_unet(backbone_ctor, default_backbone_kwargs=None):
         warn_dropped_pretrained(pretrained)
         bk = dict(default_backbone_kwargs or {})
         bk.update(backbone_kwargs or {})
+        bk['nd'] = kwargs.pop('nd', bk.get('nd', 2))
         encoder = backbone_ctor(in_channels, **bk)
         return UNet(body=encoder, in_channels_list=list(encoder.out_channels),
                     in_strides_list=list(encoder.out_strides), out_channels=out_channels,
-                    block_cls=block_cls, final_activation=final_activation, **kwargs)
+                    block_cls=block_cls, final_activation=final_activation, nd=bk['nd'],
+                    **kwargs)
     return ctor
 
 

@@ -29,41 +29,63 @@ def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
 
 
 def interpolate_nchw(x: torch.Tensor, size, mode: str = 'bilinear') -> torch.Tensor:
-    """Resize the spatial dims of an NCHW tensor (no-op at equal size).
+    """Resize the spatial dims of an NC... tensor, 2-D or 3-D (no-op at equal size).
 
     ``'nearest'`` is torch's floor-of-scaled-index rule, as in the JAX
-    package. ``'bilinear'`` uses half-pixel centres (``align_corners=False``),
-    which equals ``jax.image.resize(method='linear')`` on an upscale; on a
-    downscale (the score bounds of masked tiled inference, resized to the
-    score map) JAX widens the triangle kernel by the scale, as
-    ``F.interpolate(antialias=True)`` does (equal to 1 ulp on 0/1 masks).
+    package. ``'bilinear'`` (``'linear'`` and ``'trilinear'`` are the same
+    here) uses half-pixel centres (``align_corners=False``), which equals
+    ``jax.image.resize(method='linear')`` on an upscale; on a downscale (the
+    score bounds of masked tiled inference, resized to the score map) JAX
+    widens the triangle kernel by the scale, as ``F.interpolate(antialias=True)``
+    does (equal to 1 ulp on 0/1 masks). torch antialiases only 2-D maps, so
+    a 3-D map that shrinks along an axis is resized one axis at a time, as
+    ``jax.image.resize`` is separable.
     """
     size = tuple(int(s) for s in size)
     if tuple(x.shape[2:]) == size:
         return x
     if mode == 'nearest':
         return F.interpolate(x, size=size, mode='nearest')
-    if mode != 'bilinear':
+    if mode not in ('bilinear', 'linear', 'trilinear'):
         raise ValueError(f'Unknown interpolation mode: {mode}')
     down = any(d < s for d, s in zip(size, x.shape[2:]))
-    return F.interpolate(x, size=size, mode='bilinear', align_corners=False, antialias=down)
+    if x.dim() == 4:
+        return F.interpolate(x, size=size, mode='bilinear', align_corners=False, antialias=down)
+    if not down:
+        return F.interpolate(x, size=size, mode='trilinear', align_corners=False)
+    for axis, target in enumerate(size, start=2):
+        if x.shape[axis] != target:
+            x = _linear_along(x, axis, target)
+    return x
+
+
+def _linear_along(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    """``x`` resized linearly along one axis (antialiased on a downscale),
+    as a 2-D resize of ``[M, 1, 1, L]`` rows."""
+    moved = x.movedim(axis, -1)
+    rows = moved.reshape(-1, 1, 1, moved.shape[-1])
+    out = F.interpolate(rows, size=(1, size), mode='bilinear', align_corners=False,
+                        antialias=size < moved.shape[-1])
+    return out.reshape(moved.shape[:-1] + (size,)).movedim(-1, axis)
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """Bilinear NHWC resize matching torch ``align_corners=False``, antialiased on a downscale."""
-    return interpolate_nchw(x.permute(0, 3, 1, 2), size, 'bilinear').permute(0, 2, 3, 1)
+    """(Bi/tri)linear channels-last resize of NHWC or NDHWC ``x`` matching
+    torch ``align_corners=False``, antialiased on a downscale."""
+    return interpolate_nchw(x.movedim(-1, 1), size, 'bilinear').movedim(1, -1)
 
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
-    """Nearest NHWC resize (``src = floor(dst * in / out)``)."""
-    return interpolate_nchw(x.permute(0, 3, 1, 2), size, 'nearest').permute(0, 2, 3, 1)
+    """Nearest channels-last resize of NHWC or NDHWC ``x`` (``src = floor(dst * in / out)``)."""
+    return interpolate_nchw(x.movedim(-1, 1), size, 'nearest').movedim(1, -1)
 
 
 def equal_size(x: torch.Tensor, reference: torch.Tensor, mode: str = 'bilinear') -> torch.Tensor:
-    """Resize NHWC ``x`` to the spatial size of NHWC ``reference`` if needed."""
-    if x.shape[1:3] == reference.shape[1:3]:
+    """Resize channels-last ``x`` to the spatial size of channels-last
+    ``reference`` if needed (every spatial axis, 2-D or 3-D)."""
+    if x.shape[1:-1] == reference.shape[1:-1]:
         return x
-    size = reference.shape[1:3]
+    size = reference.shape[1:-1]
     if mode == 'nearest':
         return resize_nearest(x, size)
     return resize_bilinear(x, size)

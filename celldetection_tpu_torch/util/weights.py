@@ -12,7 +12,8 @@ MobileNetV3 bodies, ``Ppm`` as ``body.ppm``, the MaNet ``decoder``): their
 port modules carry the JAX module names, so their key is the flax path
 joined by dots (:func:`_flax_key`). JAX variables, as nested dicts of numpy
 arrays (``{'params': ..., 'batch_stats': ...}``), become torch tensors (conv
-kernels HWIO → OIHW, a depthwise ``[7, 7, 1, C]`` → ``[C, 1, 7, 7]``;
+kernels HWIO → OIHW and DHWIO → OIDHW, a depthwise ``[7, 7, 1, C]`` →
+``[C, 1, 7, 7]``;
 ``Dense`` kernels ``[in, out]`` → ``nn.Linear``'s ``[out, in]``; norm
 ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/``running_mean``/
 ``running_var``; ``layer_scale``, GRN's ``gamma``/``beta`` and the PAB's
@@ -20,7 +21,15 @@ kernels HWIO → OIHW, a depthwise ``[7, 7, 1, C]`` → ``[C, 1, 7, 7]``;
 ``Conv1d``'s ``[C, 1, d_conv]``, its ``A_log`` and ``D`` as they are; a
 trainable ``Filter2d``'s ``kernel`` (:func:`_is_filter`) as it is; the
 secondary blocks of a ResNet body or a U-Net decoder, ``secondary{i}``, under
-their flax paths) under the keys the port's modules carry, so
+their flax paths, and so the blocks of ``models/commons.py`` that carry the
+JAX names: ``SqueezeExcitation``'s ``fc0``/``fc1``, ``SelfAttention``'s
+``in_conv``, ``proj_a``, ``proj_b``, ``proj``, ``out_conv`` and ``beta``,
+``LayerNorm2d``'s ``ln``, ``AdditiveNoise``'s ``weight`` and
+``DynamicTanh``'s ``alpha``, ``weight`` and ``bias``, where a 1-D
+``weight`` outside a norm is a parameter of that name, not a kernel; a
+``BottleneckBlock`` of a U-Net encoder or decoder, found by its ``block2``,
+keeps its flax names ``block0-2``/``downsample`` under the block's torch
+prefix) under the keys the port's modules carry, so
 ``load_state_dict(..., strict=True)`` takes it.
 ``jax_variables_from_state_dict`` is its inverse (OIHW back to HWIO), the
 tree that flax's ``from_bytes`` restores into a JAX model.
@@ -65,18 +74,26 @@ def _is_filter(path: Tuple[str, ...]) -> bool:
     return path[-1] == 'kernel' and re.fullmatch(r'Filter2d_\d+|module', path[-2]) is not None
 
 
+def _flax_suffix(path) -> str:
+    """A flax path joined by dots, with the torch leaf name."""
+    return '.'.join(tuple(path[:-1]) + (_FLAX_LEAVES.get(path[-1], path[-1]),))
+
+
 def _flax_key(path: Tuple[str, ...]) -> str:
     """A later family's key: the flax path joined by dots, with the torch leaf name."""
-    return 'core.' + '.'.join(path[:-1] + (_FLAX_LEAVES.get(path[-1], path[-1]),))
+    return 'core.' + _flax_suffix(path)
 
 
-def _flax_path(key: str) -> Tuple[str, Tuple[str, ...], bool]:
+def _flax_path(key: str, ndim: Optional[int] = None) -> Tuple[str, Tuple[str, ...], bool]:
     """The inverse of :func:`_flax_key`: a norm's ``weight`` (of a module named
-    ``norm`` or ``*_norm``, every norm's flax name) is its ``scale``."""
+    ``norm``, ``*_norm`` or ``ln``, every norm's flax name) is its ``scale``;
+    another ``weight`` is a ``kernel``, unless ``ndim`` says it is 1-D (a
+    kernel never is): then it is a parameter named ``weight``
+    (``AdditiveNoise``, ``DynamicTanh``)."""
     parts = key.split('.')[1:]
     module, leaf = parts[-2], parts[-1]
-    is_norm = module == 'norm' or module.endswith('_norm')
-    if leaf == 'weight':
+    is_norm = module in ('norm', 'ln') or module.endswith('_norm')
+    if leaf == 'weight' and not (ndim == 1 and not is_norm):
         leaf = 'scale' if is_norm else 'kernel'
     coll = 'batch_stats' if leaf in ('running_mean', 'running_var') else 'params'
     leaf = {'running_mean': 'mean', 'running_var': 'var'}.get(leaf, leaf)
@@ -101,10 +118,27 @@ def _resnet_stage(layer: int, fused_initial: bool) -> str:
     return str(layer - 1 if fused_initial else layer)
 
 
-def _port_key(coll: str, path: Tuple[str, ...], fused_initial: bool = False) -> str:
-    """(collection, flax path) → the port's state-dict key."""
+def _bottlenecks(variables) -> frozenset:
+    """The flax paths of the U-Net encoder's and decoder's bottleneck blocks
+    (``BottleneckBlock``): the blocks with a ``block2`` child."""
+    level = {'body': r'block\d+', 'unet': r'layer\d+'}   # a U-Net encoder's and decoder's blocks
+    return frozenset(path[:3] for tree in variables.values() for path, _ in _flatten(tree)
+                     if len(path) > 4 and path[0] == 'backbone' and path[1] in level
+                     and re.fullmatch(level[path[1]], path[2]) and path[3] == 'block2'
+                     and path[4] in ('conv', 'norm'))
+
+
+def _port_key(coll: str, path: Tuple[str, ...], fused_initial: bool = False,
+              bottlenecks: frozenset = frozenset()) -> str:
+    """(collection, flax path) → the port's state-dict key; ``bottlenecks``
+    (:func:`_bottlenecks`) names the blocks that are bottleneck blocks."""
     p = list(path)
     conv_leaf = 'weight' if p[-1] == 'kernel' else 'bias'
+    if tuple(p[:3]) in bottlenecks:
+        i = re.fullmatch(r'(?:block|layer)(\d+)', p[2]).group(1)
+        prefix = f'core.backbone.body.{i}.{"1." if int(i) > 0 else ""}' if p[1] == 'body' \
+            else f'core.backbone.unet.layer_blocks.{i}.'
+        return prefix + _flax_suffix(p[3:])
     if p[0].endswith('_fuse'):     # Fuse: conv 0, norm 1 (the reference's Fuse2d)
         if p[1] == 'conv':
             return f'core.{p[0]}.block.0.{conv_leaf}'
@@ -160,9 +194,10 @@ def _port_key(coll: str, path: Tuple[str, ...], fused_initial: bool = False) -> 
     raise KeyError(f'no port module for {coll}/{"/".join(path)} (not ported yet?)')
 
 
-def _jax_path(key: str, encoder: str = 'unet',
-              fused_initial: bool = False) -> Tuple[str, Tuple[str, ...], bool]:
-    """The port's state-dict key → (collection, flax path, is kernel).
+def _jax_path(key: str, encoder: str = 'unet', fused_initial: bool = False,
+              ndim: Optional[int] = None) -> Tuple[str, Tuple[str, ...], bool]:
+    """The port's state-dict key → (collection, flax path, is kernel); ``ndim``:
+    the tensor's, which tells a 1-D ``weight`` parameter from a kernel.
 
     ``encoder`` (``'unet'`` or ``'resnet'``) names the layout of a body whose
     keys are numbered: the stem's keys ``body.0.0``/``body.0.1`` are a U-Net
@@ -202,7 +237,14 @@ def _jax_path(key: str, encoder: str = 'unet',
     if m:
         return conv(('backbone', 'unet', f'inner{int(m.group(1)) + 1}'), m.group(2))
     if re.fullmatch(r'core\.backbone\.(body\.[A-Za-z]\w*|decoder|unet\.secondary\d+)\..*', key):
-        return _flax_path(key)
+        return _flax_path(key, ndim)
+    # a BottleneckBlock of the U-Net encoder or decoder: flax names under the block's prefix
+    m = re.fullmatch(r'core\.backbone\.(?:body\.(\d+)\.(?:1\.)?|unet\.layer_blocks\.(\d+)\.)'
+                     r'((?:block[012]|downsample)\.(?:conv|norm\.norm)\.\w+)', key)
+    if m:
+        block = ('body', f'block{m.group(1)}') if m.group(1) else ('unet', f'layer{m.group(2)}')
+        coll, path, is_kernel = _flax_path('core.' + m.group(3))
+        return coll, ('backbone',) + block + path, is_kernel
     m = re.fullmatch(r'core\.backbone\.unet\.layer_blocks\.(\d+)\.([0134]|downsample\.[01])'
                      r'\.(\w+)', key)
     if m:
@@ -247,15 +289,16 @@ def state_dict_from_jax(variables, fused_initial: bool = False) -> Dict[str, tor
     ``fused_initial``: the layout of a ResNet body (ignored for others).
     """
     out = {}
+    bottlenecks = _bottlenecks(variables)
     for coll, tree in variables.items():
         for path, v in _flatten(tree):
-            key = _port_key(coll, path, fused_initial)
+            key = _port_key(coll, path, fused_initial, bottlenecks)
             t = torch.from_numpy(np.array(v))   # an owned copy
             if path[-1] == 'kernel' and not _is_filter(path):
-                # HWIO -> OIHW (WIO -> OIW for a 1-D conv, [in, out] -> [out,
+                # HWIO -> OIHW (DHWIO -> OIDHW, WIO -> OIW, [in, out] -> [out,
                 # in] for a Dense), in torch: a threaded copy, where numpy's is not
-                t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.permute(2, 1, 0) if t.dim() == 3
-                     else t.t()).contiguous()
+                n = t.dim()
+                t = (t.permute(n - 1, n - 2, *range(n - 2)) if n >= 3 else t.t()).contiguous()
             out[key] = t
     return out
 
@@ -305,11 +348,11 @@ def jax_variables_from_state_dict(state_dict, fused_initial: bool = False,
         encoder, _ = detect_encoder_layout(state_dict)
     variables = {}
     for key, t in state_dict.items():
-        coll, path, is_kernel = _jax_path(key, encoder, fused_initial)
         t = torch.as_tensor(t).detach()
-        if is_kernel:   # OIHW -> HWIO (OIW -> WIO, [out, in] -> [in, out]), on the tensor's device
-            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.permute(2, 1, 0) if t.dim() == 3 \
-                else t.t()
+        coll, path, is_kernel = _jax_path(key, encoder, fused_initial, t.dim())
+        # OIHW -> HWIO (OIDHW -> DHWIO, OIW -> WIO, [out, in] -> [in, out]), on the tensor's device
+        if is_kernel:
+            t = t.permute(*range(2, t.dim()), 1, 0) if t.dim() >= 3 else t.t()
         _set_path(variables.setdefault(coll, {}), path, t.contiguous().cpu().numpy())
     return variables
 
@@ -330,7 +373,7 @@ def init_jax_variables(model: torch.nn.Module, seed: int = 0) -> dict:
     rng = np.random.RandomState(seed)
     variables = {}
     for key, t in model.state_dict().items():
-        coll, path, is_kernel = _jax_path(key, encoder, fused_initial)
+        coll, path, is_kernel = _jax_path(key, encoder, fused_initial, t.dim())
         shape = tuple(t.shape)
         if is_kernel:
             o, i = shape[:2]

@@ -150,7 +150,20 @@ Phases, in order; any failure exits non-zero:
      properties, and ``OomCatcher`` through a real out-of-memory error (twice
      the card's memory, then a quarter of that); (e) three Adam steps under
      ``frozen_optimizer`` with the encoder frozen (its parameters bit
-     unchanged) and ``ema_update`` on the card against the CPU.
+     unchanged) and ``ema_update`` on the card against the CPU;
+ 21. the rest of ``models/commons.py``, heads on encoder levels and 3-D
+     backbones: (a) U22 and the ResNet50 UNet built with ``nd=3`` at their
+     default widths on 1 x 1 x 128^3 volumes, fp32 at batch 1 and bf16 at
+     batch 2 (ms a forward, peak memory), then card against CPU on 32^3
+     volumes, TF32 off, every map within 1e-4 of its peak: those two, and
+     at narrow widths the ResNet18 FPN, ConvNeXt, DenseNet, MobileNetV3Small,
+     ``Ppm`` and the MaNet blocks; (b) CpnU22 with ``contour_features=('1',
+     'encoder.1')`` and ``score_features='encoder.1'``, card against CPU at
+     256^2 as phase 4 and through the main path on 1024^2 tiles as phase 5
+     (the kernel launches of that run are ``launches_encoder_heads``); (c)
+     ``SelfAttention`` at 64^2, ``SqueezeExcitation``, ``LayerNorm2d``,
+     ``DynamicTanh``, ``BottleneckBlock`` and ``MinibatchStdLayer``, card
+     against CPU, TF32 off, within 1e-4 of each output's peak.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2887,6 +2900,169 @@ def phase_utils(rng, card, errs, floor):
     return launches
 
 
+# phase 21: 3-D backbones, CPN heads on encoder levels, the rest of models/commons.py
+VOLUME, VOLUME_CHECK = 128, 32     # 21a's timed and card-vs-CPU volume sides
+VOLUME_TOL = 1e-4                  # of each map's peak, the CPU tests' gate for 3-D models
+BLOCK_TOL = 1e-4                   # 21c, of each output's peak, card against CPU, TF32 off
+ENCODER_HEADS = dict(contour_features=('1', 'encoder.1'), score_features='encoder.1')
+
+
+def seeded(build):
+    """``build()`` with torch's default init drawn from seed ``SEED``, in eval mode."""
+    torch.manual_seed(SEED)
+    return build().eval()
+
+
+def cast_forward(model, dtype, *inputs):
+    """``model`` on ``inputs`` with its weights and inputs cast to ``dtype`` (a
+    copy per call, as ``CPN``'s ``compute_dtype`` does); ``None``: as it is."""
+    if dtype is None:
+        return model(*inputs)
+    state = {k: t.to(dtype) if t.is_floating_point() else t for k, t in model.state_dict().items()}
+    return torch.func.functional_call(model, state, tuple(x.to(dtype) for x in inputs))
+
+
+def output_maps(out):
+    """The tensors of a model's output (a tensor or a dict of them), by name."""
+    return dict(out) if isinstance(out, dict) else {'out': out}
+
+
+def hold_on_cpu(label, build, inputs, tol):
+    """``seeded(build)`` on the card against the same weights on the CPU, TF32
+    off: every output map within ``tol`` of its peak; prints one line."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_m = seeded(build)
+    gpu_m = seeded(build).cuda()
+    gpu_m.load_state_dict(cpu_m.state_dict(), strict=True)
+    xs = [torch.from_numpy(a) for a in inputs]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = output_maps(cpu_m(*xs))
+        cpu_s = time.perf_counter() - t0
+        got = output_maps(gpu_m(*[x.cuda() for x in xs]))
+    check(sorted(got) == sorted(ref), f'{label}: outputs {sorted(got)} against {sorted(ref)}')
+    worst = 0.
+    for key, want in ref.items():
+        have = got[key].cpu()
+        check(have.shape == want.shape and bool(torch.isfinite(have).all()),
+              f'{label} {key}: shape {tuple(have.shape)} or non-finite values')
+        rel = float((have - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        check(rel <= tol, f'{label} {key}: max |card - cpu| = {rel:.3e} of the peak > {tol}')
+        worst = max(worst, rel)
+    shapes = ', '.join(f'{k} {tuple(v.shape)}' for k, v in list(ref.items())[:6])
+    print(f'  {label}: card == cpu within {worst:.2e} of each map\'s peak (gate {tol}; '
+          f'CPU {cpu_s:.1f} s): {shapes}', flush=True)
+
+
+def phase_volumes(card):
+    """Phase 21a: 3-D backbones (``nd=3``) at full width on 128^3 volumes, timed,
+    then card against CPU on 32^3 volumes, TF32 off."""
+    print(f'== phase 21a: 3-D backbones (nd=3), U22 and the ResNet50 UNet at their default '
+          f'widths on 1 x 1 x {VOLUME}^3 volumes', flush=True)
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default for fp32 convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = {'U22': lambda: models.U22(1, 2, nd=3),
+            'ResNet50UNet': lambda: models.ResNet50UNet(1, 2, nd=3)}
+    volumes = np.random.RandomState(SEED + 20).rand(2, 1, VOLUME, VOLUME, VOLUME)
+    for name, build in full.items():
+        model = seeded(build).cuda()
+        x = torch.from_numpy(volumes.astype(np.float32)).cuda()
+        outs = {}
+        for label, dtype, batch in (('fp32', None, 1), ('bf16', torch.bfloat16, 2)):
+            xb = x[:batch]
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: cast_forward(model, dtype, xb), 5, warmup=2)
+                out = cast_forward(model, dtype, xb)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(tuple(out.shape) == (batch, 2) + (VOLUME,) * 3, f'{name} {label}: shape')
+            check(bool(torch.isfinite(out).all()), f'{name} {label}: non-finite output')
+            outs[label] = out[:1].float()
+            print(f'  [{card}] {name} {label} batch {batch}: {ms:.2f} ms a forward (CUDA events, '
+                  f'5 back to back after 2), {batch * 1e3 / ms:.3f} volumes/s, peak memory '
+                  f'{peak:.2f} GiB', flush=True)
+        dev = float((outs['bf16'] - outs['fp32']).abs().max() / outs['fp32'].abs().max())
+        print(f'  {name}: bf16 against fp32 on the first volume, max |diff| {dev:.3e} of the '
+              f'fp32 peak (not gated)', flush=True)
+        del model, x, outs
+        torch.cuda.empty_cache()
+    print(f'== phase 21a: 3-D models card vs CPU on {VOLUME_CHECK}^3 volumes, TF32 off',
+          flush=True)
+    rng = np.random.RandomState(SEED + 21)
+
+    def vol(channels=1, side=VOLUME_CHECK, batch=1):
+        return rng.rand(batch, channels, side, side, side).astype(np.float32)
+
+    for name, build in full.items():
+        hold_on_cpu(f'{name} (full width)', build, [vol()], VOLUME_TOL)
+    narrow = (
+        ('ResNet18FPN (base 8, its pool level)',
+         lambda: models.ResNet18FPN(1, 32, backbone_kwargs=dict(base_channel=8, nd=3)), [vol()]),
+        ('ConvNeXtEncoder (depths 2, 2, 2; 16-64 channels)',
+         lambda: models.ConvNeXtEncoder(1, depths=(2, 2, 2), channels=(16, 32, 64), nd=3),
+         [vol()]),
+        ('DenseNetEncoder (growth 8, blocks 2, 3, 2; 16 initial)',
+         lambda: models.DenseNetEncoder(1, growth_rate=8, block_config=(2, 3, 2),
+                                        init_features=16, nd=3), [vol()]),
+        ('MobileNetV3Small (width 0.5)', lambda: models.MobileNetV3Small(1, width_mult=0.5, nd=3),
+         [vol()]),
+        ('Ppm (32 to 4 x 8 channels)', lambda: models.Ppm(32, 8, nd=3), [vol(32, 12)]),
+        ('PositionWiseAttention (32 channels, 8^3 positions)',
+         lambda: models.PositionWiseAttention(32, mid_channels=16, beta=True, nd=3),
+         [vol(32, 8)]),
+        ('MultiscaleFusionAttention (32 to 16, lateral 24)',
+         lambda: models.MultiscaleFusionAttention(32, 16, 24, nd=3), [vol(32, 8), vol(24, 16)]),
+    )
+    for label, build, inputs in narrow:
+        hold_on_cpu(label, build, inputs, VOLUME_TOL)
+
+
+def phase_encoder_heads(rng, card, errs, floor):
+    """Phase 21b: CpnU22 with heads on encoder levels (a decoder level fused with
+    the encoder level of its stride, and a score head on that encoder level),
+    card against CPU at 256^2 and through the main path on 1024^2 tiles.
+    Returns the NMS kernels' launches of the main path."""
+    phase_card_vs_cpu(rng, f'phase 21b: CpnU22 with heads on encoder levels {ENCODER_HEADS} '
+                      f'(full width)', lambda **kw: models.CpnU22(in_channels=3, **ENCODER_HEADS,
+                                                                  **kw))
+    launches, _ = main_path(rng, card, errs, floor, 'phase 21b: main path, CpnU22 with heads on '
+                            'encoder levels (full width)',
+                            lambda **kw: models.CpnU22(in_channels=3, max_detections=2048,
+                                                       samples=32, **ENCODER_HEADS, **kw))
+    print(f'  kernel launches in phase 21b (launches_encoder_heads): {launches}', flush=True)
+    return launches
+
+
+def phase_blocks(card):
+    """Phase 21c: the blocks of ``models/commons.py`` new to the port, card
+    against CPU, TF32 off, one line each; attention's ``beta`` set to 0.5 so
+    that its product counts."""
+    print('== phase 21c: the new commons blocks, card vs CPU, TF32 off', flush=True)
+    rng = np.random.RandomState(SEED + 22)
+
+    def with_beta(m):
+        with torch.no_grad():
+            m.beta.fill_(0.5)
+        return m
+
+    cases = (
+        ('SelfAttention (64 channels at 64^2: a 4096 x 4096 map)',
+         lambda: with_beta(models.SelfAttention(64)), (2, 64, 64, 64)),
+        ('SqueezeExcitation (64 channels)', lambda: models.SqueezeExcitation(64), (2, 64, 64, 64)),
+        ('LayerNorm2d (64 channels)', lambda: models.LayerNorm2d(64), (2, 64, 64, 64)),
+        ('DynamicTanh (64 channels)', lambda: models.DynamicTanh(64), (2, 64, 64, 64)),
+        ('BottleneckBlock (64 to 256, stride 2)',
+         lambda: models.BottleneckBlock(64, 256, stride=2), (2, 64, 64, 64)),
+        ('MinibatchStdLayer (2 groups)', lambda: models.MinibatchStdLayer(2, 2), (4, 64, 64, 64)),
+    )
+    for label, build, shape in cases:
+        x = (rng.randn(*shape) * 2).astype(np.float32)
+        hold_on_cpu(f'[{card}] {label}', build, [x], BLOCK_TOL)
+
+
 def score_gap(a, b):
     """The largest score difference of detections the two sides share
     (by the nearest box), for the report of a count difference."""
@@ -2961,6 +3137,9 @@ def main():
     phase_demo_multiclass(card)
     launches_mamba = phase_mamba(rng, card, errs, floor)
     launches_utils = phase_utils(rng, card, errs, floor)
+    phase_volumes(card)
+    launches_encoder_heads = phase_encoder_heads(rng, card, errs, floor)
+    phase_blocks(card)
     imported = {'jax', 'celldetection_tpu', 'cv2', 'skimage', 'msgpack', 'flax', 'h5py',
                 'pandas', 'imageio', 'tifffile', 'PIL', 'yaml', 'matplotlib',
                 'tensorboard'} & set(sys.modules)
@@ -2975,6 +3154,7 @@ def main():
         'launches_cli': launches_cli[name], 'launches_heads': launches_heads[name],
         'launches_ddp': launches_ddp[name], 'launches_demo': launches_demo[name],
         'launches_mamba': launches_mamba[name], 'launches_utils': launches_utils[name],
+        'launches_encoder_heads': launches_encoder_heads[name],
         'max_abs_err': errs[name],
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],

@@ -98,9 +98,15 @@ def test_head_options_build_their_modules():
     # one level for every contour head: the uncertainty head joins the fused conv
     assert tmodels.CpnU22(in_channels=1, device='cpu', backbone_kwargs=dict(base_channels=BASE),
                           **UNCERTAINTY).core.fusable
-    with pytest.raises(NotImplementedError, match='encoder'):
-        tmodels.CpnU22(in_channels=1, device='cpu', backbone_kwargs=dict(base_channels=BASE),
-                       contour_features=('1', 'encoder.0'))
+    # a decoder level fused with an encoder level (``keep_features``' 'encoder.<k>' maps):
+    # the same CPN as the JAX package's
+    options = dict(contour_features=('1', 'encoder.0'))
+    fuse = tmodels.CpnU22(in_channels=1, device='cpu', backbone_kwargs=dict(base_channels=BASE),
+                          **options).core.fourier_fuse.block[0]
+    assert (fuse.in_channels, fuse.out_channels) == (2 * BASE + BASE, 2 * BASE)
+    _slice_parity((functools.partial(jmodels.CpnU22, **options),
+                   functools.partial(tmodels.CpnU22, **options)), dict(base_channels=BASE),
+                  size=SIZE, batch=BATCH, capacity=512, seed=5)
 
 
 def _dense(rng, buckets, uncertainty=True):

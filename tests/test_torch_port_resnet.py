@@ -13,7 +13,9 @@ CPU and through ``celldetection_tpu_torch`` with ``device='cpu'``:
   equal classes, contours within 1e-3 px on 99% of points, mean under
   0.1 px): BasicBlock with one bridge and, with ``fused_initial=True``, two;
   grouped convolutions (ResNeXt50); the FPN with its ``'pool'`` level and
-  the multiclass decode; and the flagship CpnResNeXt101UNet at base 8.
+  the multiclass decode; and the flagship CpnResNeXt101UNet at base 8;
+* a 5-D input through ResNet50 built with ``nd=3`` against the JAX
+  package's encoder on the same weights (every level within 1e-4 of its peak).
 """
 import jax
 import jax.numpy as jnp
@@ -22,11 +24,13 @@ import pytest
 import torch
 
 from celldetection_tpu import models as jmodels
+from celldetection_tpu.models import resnet as jresnet
 from celldetection_tpu.util.torch_import import export_torch_state_dict
 from celldetection_tpu_torch import models as tmodels
 from celldetection_tpu_torch.util import init_jax_variables, state_dict_from_jax
 from test_torch_port_cpn import _numpy_tree, _slice_parity
 from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
+from test_torch_port_commons import flax_variables, load_port
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -89,17 +93,28 @@ def test_resnet_cpn_fp32_matches_jax(name, backbone_kwargs, size, batch, capacit
 
 
 def test_resnet_options_raise_until_ported():
-    """The options of later slices name what is missing rather than run wrongly:
-    3-D inputs (``pyramid_pooling``, ``pretrained`` and the ``MambaLayer``
-    secondary block, ported since, are held in ``tests/test_torch_port_zoo.py``,
-    ``tests/test_torch_port_pretrained.py`` and ``tests/test_torch_port_mamba.py``;
-    here the secondary block builds one layer per stage)."""
+    """The options of later slices, ported since: ``pyramid_pooling``,
+    ``pretrained`` and the ``MambaLayer`` secondary block are held in
+    ``tests/test_torch_port_zoo.py``, ``tests/test_torch_port_pretrained.py``
+    and ``tests/test_torch_port_mamba.py``; here the secondary block builds
+    one layer per stage, and a 5-D input runs through the encoder built with
+    ``nd=3`` as through the JAX package's (``tests/test_torch_port_nd.py``
+    holds the rest of the 3-D models)."""
     body = tmodels.get_cpn('CpnResNet18UNet')(
         3, backbone_kwargs=dict(secondary_block=tmodels.MambaLayer, base_channel=8),
         device='cpu').core.backbone.body
     assert [type(getattr(body, f'secondary{i}')).__name__ for i in range(1, 5)] == \
         ['MambaLayer'] * 4
-    model = tmodels.get_cpn('CpnResNet50FPN')(3, backbone_kwargs=dict(base_channel=8),
-                                             device='cpu')
-    with pytest.raises(NotImplementedError, match='3-D ResNet inputs'):
-        model.core.backbone.body(torch.zeros(1, 3, 8, 32, 32))
+    jm = jresnet.ResNet50(3, fused_initial=False, base_channel=8)
+    tm = tmodels.ResNet50(3, fused_initial=False, base_channel=8, nd=3)
+    x = np.random.RandomState(0).rand(1, 8, 32, 32, 3).astype(np.float32)
+    variables = flax_variables(jm, x, False, seed=0)
+    load_port(tm, variables, ('backbone', 'body'), 'core.backbone.body.', fused_initial=False)
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False))(variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm.eval()(torch.from_numpy(x).movedim(-1, 1))
+    assert sorted(got) == sorted(ref) == ['0', '1', '2', '3', '4']
+    for key, value in ref.items():
+        value = np.asarray(value)
+        np.testing.assert_allclose(got[key].movedim(1, -1).numpy(), value, rtol=0,
+                                   atol=1e-4 * float(np.abs(value).max()), err_msg=key)
