@@ -1,0 +1,8 @@
+"""TiledInference.stats stitch_ms, mean over the window's mosaics."""
+
+
+def read(run):
+    stats = run.get('stats')
+    if run.get('kind') != 'mosaic' or not stats:
+        return None
+    return sum(s['stitch_ms'] for s in stats) / len(stats)
