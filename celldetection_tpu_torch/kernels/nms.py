@@ -37,6 +37,11 @@ pairs a block, so that the removed bits of 2^20 boxes fit in shared memory.
 The sources explain what bounds each kernel on this card and what its design
 does about it.
 
+:func:`bits_sweep` times its steps as spans (:mod:`..util.spans`):
+``nms.count`` (the count kernel, the prefix sum and, with several bands, the
+read of the offsets on the host), then ``nms.fill`` and ``nms.resolve`` a
+band; each launch adds 1 to its span's ``launches``.
+
 Each wrapper runs its plain version in ``ops/boxes.py`` for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback from one to the
 other. :func:`nms_sweep` checks the inputs (device, types, shapes,
@@ -51,6 +56,7 @@ import torch
 
 from ..ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks, _suppression_counts,
                          _suppression_pairs)
+from ..util.spans import count, span
 from .build import KernelLibrary, build_library
 
 __all__ = ['nms_sweep', 'bits_sweep', 'nms_bits_count', 'nms_bits_fill', 'nms_resolve',
@@ -163,6 +169,7 @@ def nms_bits_count(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
             valid.data_ptr(), _ptr(start), diag.data_ptr(), _ptr(nxt), _ptr(flags), bsz, m,
             float(iou_threshold), int(large))
     nms_bits_count.launches += 1
+    count('launches')
     return start, diag, flags, nxt
 
 
@@ -197,6 +204,7 @@ def nms_bits_fill(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
             valid.data_ptr(), _ptr(flags), _ptr(cursor), pairs.data_ptr(), bsz, m,
             float(iou_threshold), r0, r1, base, int(large))
     nms_bits_fill.launches += 1
+    count('launches')
     return pairs
 
 
@@ -222,6 +230,7 @@ def nms_resolve(valid: torch.Tensor, diag: torch.Tensor, nxt: torch.Tensor,
             diag.data_ptr(), _ptr(nxt), pairs.data_ptr(), _ptr(start), base, _ptr(removed),
             keep.data_ptr(), bsz, m, r0, r1, int(large))
     nms_resolve.launches += 1
+    count('launches')
 
 
 for _k in (nms_bits_count, nms_bits_fill, nms_resolve):
@@ -298,18 +307,21 @@ def bits_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
     bsz, m = valid.shape
     large = large_layout(m) if large is None else large
     slots = not large and slots_layout(bsz, m, pair_budget)
-    start, diag, flags, nxt = nms_bits_count(boxes, valid, iou_threshold, packed=not slots,
-                                             large=large)
-    if start is not None:
-        start.cumsum_(0)                           # start[0] is 0: the rows' offsets
-    bands = band_plan(start, bsz, m, pair_budget)
+    with span('nms.count'):
+        start, diag, flags, nxt = nms_bits_count(boxes, valid, iou_threshold, packed=not slots,
+                                                 large=large)
+        if start is not None:
+            start.cumsum_(0)                       # start[0] is 0: the rows' offsets
+        bands = band_plan(start, bsz, m, pair_budget)
     keep = torch.empty_like(valid)
     removed = (torch.empty(bsz, -(-m // BLOCK), dtype=torch.int64, device=boxes.device)
                if len(bands) > 1 else None)
     for r0, r1, base, size in bands:
-        pairs = nms_bits_fill(boxes, valid, iou_threshold, r0, r1, flags, start, base, size,
-                              large)
-        nms_resolve(valid, diag, nxt, pairs, start, base, removed, keep, r0, r1, large)
+        with span('nms.fill'):
+            pairs = nms_bits_fill(boxes, valid, iou_threshold, r0, r1, flags, start, base, size,
+                                  large)
+        with span('nms.resolve'):
+            nms_resolve(valid, diag, nxt, pairs, start, base, removed, keep, r0, r1, large)
         del pairs                                  # before the next band's are made
     return keep
 

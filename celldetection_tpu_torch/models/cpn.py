@@ -41,6 +41,7 @@ from ..ops.cpn import (batched_box_nms, fouriers2contours, order_weighting,
                        scale_fourier)
 from ..util.device import resolve_device
 from ..util.init import torch_init_
+from ..util.spans import count, recording, span
 from . import fpn as fpn_lib
 from . import manet as manet_lib
 from . import resnet as resnet_lib
@@ -583,14 +584,21 @@ class CPN(nn.Module):
             generator: ``torch.Generator`` on the model's device for the
                 random draws of training (the selection priority, which
                 subsamples the foreground when it exceeds K, and dropout).
+
+        Spans (:mod:`..util.spans`): ``cpn.forward`` (counts ``batch``, ``k``)
+        over ``cpn.cast_weights`` (``tensors``; with ``compute_dtype``),
+        ``cpn.core``, ``cpn.decode`` (``refine_iters``), ``cpn.loss`` and
+        ``cpn.nms``.
         """
         train = self.training
         if train:
             for m in self._dropouts:
                 m.generator = generator
-        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        k = self.max_detections if max_detections is None else max_detections
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
+                span('cpn.forward', batch=inputs.shape[0], k=k):
             return self._forward_padded(inputs, score_thresh, nms, offsets, scores_lower_bound,
-                                        scores_upper_bound, max_detections, targets, generator)
+                                        scores_upper_bound, k, targets, generator)
 
     def _forward_padded(self, inputs, score_thresh, nms, offsets, scores_lower_bound,
                         scores_upper_bound, max_detections, targets, generator) -> dict:
@@ -598,15 +606,20 @@ class CPN(nn.Module):
         score_thresh = self.score_thresh if score_thresh is None else score_thresh
         cdt = None if train else self.compute_dtype
         if cdt is None:
-            dense = self.core(inputs)
+            with span('cpn.core'):
+                dense = self.core(inputs)
         else:
             # a cast copy per call: one pass over the weights, far below a
             # forward's cost, and nothing to keep in step with the fp32 weights
-            state = {k: t.to(cdt) if t.is_floating_point() else t
-                     for k, t in self.core.state_dict().items()}
-            dense = torch.func.functional_call(self.core, state, (inputs.to(cdt),))
-            dense = {k: (v if v is None or k == 'refinement' else v.float())
-                     for k, v in dense.items()}
+            with span('cpn.cast_weights'):
+                state = {k: t.to(cdt) if t.is_floating_point() else t
+                         for k, t in self.core.state_dict().items()}
+                if recording():
+                    count('tensors', sum(t.is_floating_point() for t in state.values()))
+            with span('cpn.core'):
+                dense = torch.func.functional_call(self.core, state, (inputs.to(cdt),))
+                dense = {k: (v if v is None or k == 'refinement' else v.float())
+                         for k, v in dense.items()}
         labels = sampling = priority = None
         if targets is not None:
             labels, sampling = targets.get('labels'), targets.get('sampling')
@@ -614,33 +627,38 @@ class CPN(nn.Module):
                 # unbiased subsampling of the foreground when it exceeds K
                 priority = torch.rand(dense['scores'].shape[:3], generator=generator,
                                       device=inputs.device)
-        decoded = cpn_decode(
-            dense, tuple(inputs.shape[1:3]), order=self.order, samples=self.samples,
-            score_channels=self.score_channels, score_thresh=score_thresh,
-            max_detections=self.max_detections if max_detections is None else max_detections,
-            refinement_iterations=self.refinement_iterations if self.refinement else 0,
-            refinement_buckets=self.refinement_buckets, certainty_thresh=self.certainty_thresh,
-            sampling=sampling, labels=labels,
-            priority=priority, scores_lower_bound=scores_lower_bound,
-            scores_upper_bound=scores_upper_bound,
-            offsets=None if targets is not None else offsets)
+        refine_iters = self.refinement_iterations if self.refinement else 0
+        with span('cpn.decode', refine_iters=refine_iters):
+            decoded = cpn_decode(
+                dense, tuple(inputs.shape[1:3]), order=self.order, samples=self.samples,
+                score_channels=self.score_channels, score_thresh=score_thresh,
+                max_detections=max_detections, refinement_iterations=refine_iters,
+                refinement_buckets=self.refinement_buckets,
+                certainty_thresh=self.certainty_thresh, sampling=sampling, labels=labels,
+                priority=priority, scores_lower_bound=scores_lower_bound,
+                scores_upper_bound=scores_upper_bound,
+                offsets=None if targets is not None else offsets)
         if targets is not None:
             ow = self.order_weights
-            decoded['loss'], decoded['losses'] = cpn_compute_loss(
-                decoded, targets, score_channels=self.score_channels,
-                order_weights=ow.to(inputs.device) if torch.is_tensor(ow) else ow,
-                weights=self.weights, uncertainty_factor=self.uncertainty_factor,
-                uncertainty_head=self.uncertainty_head, iou_loss_enabled=self.iou_loss_enabled,
-                box_loss_enabled=self.box_loss_enabled,
-                refinement_enabled=bool(self.refinement) and self.refinement_iterations > 0)
+            with span('cpn.loss'):
+                decoded['loss'], decoded['losses'] = cpn_compute_loss(
+                    decoded, targets, score_channels=self.score_channels,
+                    order_weights=ow.to(inputs.device) if torch.is_tensor(ow) else ow,
+                    weights=self.weights, uncertainty_factor=self.uncertainty_factor,
+                    uncertainty_head=self.uncertainty_head,
+                    iou_loss_enabled=self.iou_loss_enabled,
+                    box_loss_enabled=self.box_loss_enabled,
+                    refinement_enabled=bool(self.refinement) and self.refinement_iterations > 0)
             if offsets is not None:
                 decoded = apply_detection_offsets(decoded, offsets)
         if nms and not train:
-            weights = decoded['scores']
-            if self.uncertainty_nms and decoded['box_uncertainties'] is not None:
-                weights = weights * (1. - decoded['box_uncertainties'].mean(-1))
-            keep = batched_box_nms(decoded['boxes'], weights, decoded['valid'], self.nms_thresh)
-            decoded['valid'] = decoded['valid'] & keep
+            with span('cpn.nms'):
+                weights = decoded['scores']
+                if self.uncertainty_nms and decoded['box_uncertainties'] is not None:
+                    weights = weights * (1. - decoded['box_uncertainties'].mean(-1))
+                keep = batched_box_nms(decoded['boxes'], weights, decoded['valid'],
+                                       self.nms_thresh)
+                decoded['valid'] = decoded['valid'] & keep
         return decoded
 
     def prepare_inputs(self, inputs) -> torch.Tensor:

@@ -20,9 +20,10 @@ kernels run for every N up to ``kernels.nms.MAX_BOXES`` per image; on a CPU
 tensor the plain sweep runs. ``nms_chunked`` takes the branches that the JAX
 package takes on a TPU, on either device.
 """
-import time
 
 import torch
+
+from ..util.spans import span
 
 __all__ = ['box_area', 'box_iou', 'pairwise_box_iou', 'pairwise_generalized_box_iou',
            'sort_by_score', 'nms_padded', 'nms_chunked', 'nms_indices',
@@ -337,8 +338,10 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
 
 def _traced(trace, name: str, shape, device, fn):
-    """``fn()``; where ``trace`` is a list, also append the pass's host time
-    (ended by a device synchronisation), its ``B x M`` and its kernel launches."""
+    """``fn()``; where ``trace`` is a list, also the span ``nms.<name>`` (count
+    ``m``; its kernels' ``nms.*`` spans count their launches), ended by a
+    device synchronisation, and an entry in ``trace``: the pass's name,
+    ``B x M``, host ms (the span's) and kernel launches."""
     if trace is None:
         return fn()
     from ..kernels import KERNELS
@@ -349,12 +352,12 @@ def _traced(trace, name: str, shape, device, fn):
 
     sync()
     before = sum(k.launches for k in KERNELS)
-    t0 = time.perf_counter()
-    out = fn()
-    sync()
-    trace.append(dict(name=name, batch=int(shape[0]), m=int(shape[1]),
-                      ms=(time.perf_counter() - t0) * 1e3,
-                      launches=sum(k.launches for k in KERNELS) - before))
+    with span(f'nms.{name}', m=int(shape[1])) as sp:
+        out = fn()
+        sync()
+        launches = sum(k.launches for k in KERNELS) - before
+    trace.append(dict(name=name, batch=int(shape[0]), m=int(shape[1]), ms=sp.ms,
+                      launches=launches))
     return out
 
 
@@ -386,7 +389,8 @@ def nms_chunked(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         return_overflow: Also return whether more than ``cap`` boxes survived
             their chunks (the lowest-scored survivors were dropped).
         trace: a list to which each NMS pass appends its name, ``B x M``,
-            host ms (synchronised) and kernel launches, and the chunked
+            host ms (synchronised; the span ``nms.exact``, ``nms.per-chunk``
+            or ``nms.cross-chunk``) and kernel launches, and the chunked
             branch its survivor count.
         sweep: as :func:`nms_padded`'s, for every pass.
 

@@ -25,7 +25,6 @@ detections and repeat one NMS over them, so that every rank holds the same
 result.
 """
 import math
-import time
 from typing import Optional
 
 import numpy as np
@@ -33,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.boxes import _suppression_matrix, nms_chunked, nms_padded, remove_small_boxes_mask
+from ..util.spans import count, span
 from ..util.tiling import get_tiling_slices
 from .mesh import host_group, mesh_group
 
@@ -196,13 +196,19 @@ class TiledInference:
             through :func:`multihost_tiled_inference`, which splits the
             mosaic's tiles over them (every rank calls with the same image).
 
-    After a call, ``stats`` holds the host ms of its stages (each ended by a
-    device synchronisation the pipeline makes anyway): ``forward_ms``,
-    ``retry_ms`` (with the flattening of the candidates), ``stitch_ms``
-    (compaction and NMS of every attempt), ``readback_ms``, ``total_ms``;
-    ``nms``, each NMS pass of the stitch (name, ``B x M``, ms, kernel
-    launches) and the survivor counts; ``num_tiles``, ``attempts`` and
-    ``retried_tiles``.
+    After a call, ``stats`` holds the host ms of its stages, each the ``.ms``
+    of its span (:mod:`..util.spans`) and each ended by a device
+    synchronisation the pipeline makes anyway: ``forward_ms``
+    (``tiled.forwards``), ``retry_ms`` (``tiled.retry``, with the flattening
+    of the candidates), ``stitch_ms`` (``tiled.stitch``: compaction and NMS
+    of every attempt), ``readback_ms`` (``tiled.readback``), ``total_ms``
+    (``tiled.call``, the outer span of a call); ``nms``, each NMS pass of the
+    stitch (name, ``B x M``, ms of its span ``nms.<name>``, kernel launches)
+    and the survivor counts; ``num_tiles``, ``attempts`` and
+    ``retried_tiles``. The host's tiling and mask crops are the span
+    ``tiled.tile_image`` (counts ``tiles_cut``, ``tiles_kept``), the input
+    and geometry copies ``tiled.prepare_inputs`` (``bytes``); both are in
+    ``total_ms`` and have no key of their own.
     """
 
     def __init__(self, model, tile_size: int = 1024, stride: int = 768,
@@ -292,94 +298,103 @@ class TiledInference:
         """
         model = self.model
         dev = model.device
-        tiles, offsets, borders, overlaps, _ = tile_image(np.asarray(image), self.tile_size,
-                                                          self.stride)
-        use_bounds = mask is not None or point_mask is not None
-        upper_tiles = lower_tiles = None
-        if use_bounds:
-            def crop_tiles(m):
-                if m is None:
-                    return None
-                return tile_image(np.asarray(m, np.float32), self.tile_size, self.stride)[0][..., :1]
+        with span('tiled.tile_image'):
+            tiles, offsets, borders, overlaps, _ = tile_image(np.asarray(image), self.tile_size,
+                                                              self.stride)
+            count('tiles_cut', tiles.shape[0])
+            use_bounds = mask is not None or point_mask is not None
+            upper_tiles = lower_tiles = None
+            if use_bounds:
+                def crop_tiles(m):
+                    if m is None:
+                        return None
+                    return tile_image(np.asarray(m, np.float32), self.tile_size,
+                                      self.stride)[0][..., :1]
 
-            mask_tiles, lower_tiles = crop_tiles(mask), crop_tiles(point_mask)
-            upper_tiles = mask_tiles
-            if point_mask_exclusive and lower_tiles is not None:
-                upper_tiles = lower_tiles          # the points replace the upper bound
-            # a tile is skipped where its crop of the mask or of the point mask is empty
-            nonempty = None
-            for src in (mask_tiles, lower_tiles):
-                if src is not None:
-                    ne = src.reshape(src.shape[0], -1).max(-1) > 0
-                    nonempty = ne if nonempty is None else nonempty & ne
-            tiles, offsets, borders, overlaps = (a[nonempty] for a in
-                                                 (tiles, offsets, borders, overlaps))
-            upper_tiles = None if upper_tiles is None else upper_tiles[nonempty]
-            lower_tiles = None if lower_tiles is None else lower_tiles[nonempty]
-        total, tile_ids = tiles.shape[0], np.arange(tiles.shape[0])
-        if part is not None:
-            sel = tile_ids = np.arange(part[0], tiles.shape[0], part[1])
-            tiles, offsets, borders, overlaps = (a[sel] for a in
-                                                 (tiles, offsets, borders, overlaps))
-            upper_tiles = None if upper_tiles is None else upper_tiles[sel]
-            lower_tiles = None if lower_tiles is None else lower_tiles[sel]
-        t = tiles.shape[0]
+                mask_tiles, lower_tiles = crop_tiles(mask), crop_tiles(point_mask)
+                upper_tiles = mask_tiles
+                if point_mask_exclusive and lower_tiles is not None:
+                    upper_tiles = lower_tiles          # the points replace the upper bound
+                # a tile is skipped where its crop of the mask or of the point mask is empty
+                nonempty = None
+                for src in (mask_tiles, lower_tiles):
+                    if src is not None:
+                        ne = src.reshape(src.shape[0], -1).max(-1) > 0
+                        nonempty = ne if nonempty is None else nonempty & ne
+                tiles, offsets, borders, overlaps = (a[nonempty] for a in
+                                                     (tiles, offsets, borders, overlaps))
+                upper_tiles = None if upper_tiles is None else upper_tiles[nonempty]
+                lower_tiles = None if lower_tiles is None else lower_tiles[nonempty]
+            total, tile_ids = tiles.shape[0], np.arange(tiles.shape[0])
+            if part is not None:
+                sel = tile_ids = np.arange(part[0], tiles.shape[0], part[1])
+                tiles, offsets, borders, overlaps = (a[sel] for a in
+                                                     (tiles, offsets, borders, overlaps))
+                upper_tiles = None if upper_tiles is None else upper_tiles[sel]
+                lower_tiles = None if lower_tiles is None else lower_tiles[sel]
+            t = tiles.shape[0]
+            count('tiles_kept', t)
         stats = self.stats = dict(num_tiles=t, nms=[], retried_tiles=0, attempts=0)
         if t == 0:
             return None, 0, False
-        tiles = model.prepare_inputs(tiles)
-        offsets, borders, overlaps = (torch.from_numpy(a).to(dev)
-                                      for a in (offsets, borders, overlaps))
+        with span('tiled.prepare_inputs'):
+            count('bytes', sum(a.nbytes for a in (tiles, offsets, borders, overlaps)))
+            tiles = model.prepare_inputs(tiles)
+            offsets, borders, overlaps = (torch.from_numpy(a).to(dev)
+                                          for a in (offsets, borders, overlaps))
         st = model.score_thresh if score_thresh is None else score_thresh
         capacity = model.max_detections
 
-        t0 = time.perf_counter()
-        while True:
-            try:
-                det = _concat(self._run_batches(tiles, offsets, borders, overlaps, st, upper_tiles,
-                                                lower_tiles, use_bounds, capacity))
-                break
-            except torch.cuda.OutOfMemoryError:
-                if self.batch_size <= 1:
-                    raise
-                self.batch_size //= 2
-        fg_ovf = det['fg_overflow'].cpu().numpy()
-        stats['forward_ms'] = (time.perf_counter() - t0) * 1e3
+        with span('tiled.forwards') as sp:
+            while True:
+                try:
+                    det = _concat(self._run_batches(tiles, offsets, borders, overlaps, st,
+                                                    upper_tiles, lower_tiles, use_bounds,
+                                                    capacity))
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    if self.batch_size <= 1:
+                        raise
+                    self.batch_size //= 2
+            fg_ovf = det['fg_overflow'].cpu().numpy()
+        stats['forward_ms'] = sp.ms
 
         # per-tile capacity retry: saturated tiles re-run at 2x, 4x, ...
-        t0 = time.perf_counter()
-        retried = {}
-        active = np.nonzero(fg_ovf)[0] if self.retry_overflow else np.zeros(0, np.int64)
-        factor = 2
-        while len(active) and factor <= self.max_capacity_factor:
-            idx = torch.from_numpy(active).to(dev)
-            hi = _concat(self._run_batches(
-                tiles[idx], offsets[idx], borders[idx], overlaps[idx], st,
-                None if upper_tiles is None else upper_tiles[active],
-                None if lower_tiles is None else lower_tiles[active], use_bounds,
-                capacity * factor))
-            for j, tile_idx in enumerate(active):
-                retried[int(tile_idx)] = {k: None if v is None else v[j] for k, v in hi.items()}
-            active = active[hi['fg_overflow'].cpu().numpy()]
-            factor *= 2
-        residual_fg_overflow = bool(len(active)) if self.retry_overflow else bool(fg_ovf.any())
-        # a row's place among all tiles' rows: tile by tile, and the retried
-        # tiles' rows after every other tile's
-        ids = torch.from_numpy(tile_ids).to(dev)
-        det['order'] = ids[:, None] * capacity + torch.arange(capacity, device=dev)
-        for i, r in retried.items():
-            r['order'] = (total + int(tile_ids[i]) * self.max_capacity_factor) * capacity + \
-                torch.arange(r['valid'].shape[0], device=dev)
-        if retried:
-            keep = torch.ones(t, dtype=torch.bool, device=dev)
-            keep[list(retried)] = False
-            flat = {k: None if det[k] is None else
-                    torch.cat([det[k][keep].flatten(0, 1)] + [retried[i][k] for i in sorted(retried)])
-                    for k in KEYS + ('valid', 'order')}
-        else:
-            flat = {k: None if det[k] is None else det[k].flatten(0, 1)
-                    for k in KEYS + ('valid', 'order')}
-        stats['retry_ms'] = (time.perf_counter() - t0) * 1e3
+        with span('tiled.retry') as sp:
+            retried = {}
+            active = np.nonzero(fg_ovf)[0] if self.retry_overflow else np.zeros(0, np.int64)
+            factor = 2
+            while len(active) and factor <= self.max_capacity_factor:
+                idx = torch.from_numpy(active).to(dev)
+                hi = _concat(self._run_batches(
+                    tiles[idx], offsets[idx], borders[idx], overlaps[idx], st,
+                    None if upper_tiles is None else upper_tiles[active],
+                    None if lower_tiles is None else lower_tiles[active], use_bounds,
+                    capacity * factor))
+                for j, tile_idx in enumerate(active):
+                    retried[int(tile_idx)] = {k: None if v is None else v[j] for k, v in hi.items()}
+                active = active[hi['fg_overflow'].cpu().numpy()]
+                factor *= 2
+            residual_fg_overflow = bool(len(active)) if self.retry_overflow else bool(fg_ovf.any())
+            # a row's place among all tiles' rows: tile by tile, and the retried
+            # tiles' rows after every other tile's
+            ids = torch.from_numpy(tile_ids).to(dev)
+            det['order'] = ids[:, None] * capacity + torch.arange(capacity, device=dev)
+            for i, r in retried.items():
+                r['order'] = (total + int(tile_ids[i]) * self.max_capacity_factor) * capacity + \
+                    torch.arange(r['valid'].shape[0], device=dev)
+            if retried:
+                keep = torch.ones(t, dtype=torch.bool, device=dev)
+                keep[list(retried)] = False
+                flat = {k: None if det[k] is None else
+                        torch.cat([det[k][keep].flatten(0, 1)]
+                                  + [retried[i][k] for i in sorted(retried)])
+                        for k in KEYS + ('valid', 'order')}
+            else:
+                flat = {k: None if det[k] is None else det[k].flatten(0, 1)
+                        for k in KEYS + ('valid', 'order')}
+            count('retried_tiles', len(retried))
+        stats['retry_ms'] = sp.ms
         stats['retried_tiles'] = len(retried)
         return flat, t, residual_fg_overflow
 
@@ -403,19 +418,19 @@ class TiledInference:
         if mesh_group(self.mesh) is not None and dist.get_world_size(mesh_group(self.mesh)) > 1:
             return multihost_tiled_inference(self, image, score_thresh, mask, point_mask,
                                              point_mask_exclusive)
-        t_start = time.perf_counter()
-        flat, t, residual_fg_overflow = self.candidates(image, score_thresh, mask, point_mask,
-                                                        point_mask_exclusive)
-        stats = self.stats
-        if flat is None:
-            return self._empty_result()
-        compact, num_valid, overflow, _ = self._stitch(flat)
-
-        t0 = time.perf_counter()
-        valid = compact['valid']
-        result = {k: None if compact[k] is None else compact[k][valid].cpu().numpy() for k in KEYS}
-        stats['readback_ms'] = (time.perf_counter() - t0) * 1e3
-        stats['total_ms'] = (time.perf_counter() - t_start) * 1e3
+        with span('tiled.call') as call:
+            flat, t, residual_fg_overflow = self.candidates(image, score_thresh, mask, point_mask,
+                                                            point_mask_exclusive)
+            stats = self.stats
+            if flat is None:
+                return self._empty_result()
+            compact, num_valid, overflow, _ = self._stitch(flat)
+            with span('tiled.readback') as sp:
+                valid = compact['valid']
+                result = {k: None if compact[k] is None else compact[k][valid].cpu().numpy()
+                          for k in KEYS}
+            stats['readback_ms'] = sp.ms
+        stats['total_ms'] = call.ms
         result['num_tiles'] = t
         result['num_valid'] = num_valid
         result['overflow'] = bool(residual_fg_overflow or overflow)
@@ -436,30 +451,31 @@ class TiledInference:
         count before its cut, whether a cap dropped detections in the end,
         and the last :func:`stitch_flat` result."""
         stats = self.stats
-        t0 = time.perf_counter()
         max_out, max_cand, surv_cap = self.max_outputs, self.max_candidates, None
-        for attempt in range(4 if self.retry_overflow else 1):
-            stitched = stitch_flat(flat, self.model.nms_thresh, nms_tile=self.nms_tile,
-                                   max_candidates=max_cand, nms_chunk=self.nms_chunk,
-                                   survivors_cap=surv_cap, trace=stats['nms'])
-            compact = compact_detections(stitched, max_out)
-            num_valid, num_pre = int(compact['num_valid']), int(stitched['num_pre_valid'])
-            ovf_surv = stitched['survivors_overflow']
-            ovf_out, ovf_cand = num_valid > max_out, num_pre > max_cand
-            stats['attempts'] = attempt + 1
-            if not self.retry_overflow or not (ovf_out or ovf_cand or ovf_surv):
-                break
-            # num_pre is the candidate count before the cut and num_valid the
-            # keep count of this candidate set: jump to power-of-two caps that
-            # hold them; the output cap grows only past the keep count
-            need_cand = num_pre if ovf_cand else 0
-            while max_cand < need_cand:
-                max_cand *= 2
-            while max_out < min(max(num_valid, 1), max_cand):
-                max_out *= 2
-            if ovf_surv:
-                surv_cap = 'full'       # no survivor can be dropped on the retry
-        stats['stitch_ms'] = (time.perf_counter() - t0) * 1e3
+        with span('tiled.stitch') as sp:
+            for attempt in range(4 if self.retry_overflow else 1):
+                stitched = stitch_flat(flat, self.model.nms_thresh, nms_tile=self.nms_tile,
+                                       max_candidates=max_cand, nms_chunk=self.nms_chunk,
+                                       survivors_cap=surv_cap, trace=stats['nms'])
+                compact = compact_detections(stitched, max_out)
+                num_valid, num_pre = int(compact['num_valid']), int(stitched['num_pre_valid'])
+                ovf_surv = stitched['survivors_overflow']
+                ovf_out, ovf_cand = num_valid > max_out, num_pre > max_cand
+                stats['attempts'] = attempt + 1
+                if not self.retry_overflow or not (ovf_out or ovf_cand or ovf_surv):
+                    break
+                # num_pre is the candidate count before the cut and num_valid the
+                # keep count of this candidate set: jump to power-of-two caps that
+                # hold them; the output cap grows only past the keep count
+                need_cand = num_pre if ovf_cand else 0
+                while max_cand < need_cand:
+                    max_cand *= 2
+                while max_out < min(max(num_valid, 1), max_cand):
+                    max_out *= 2
+                if ovf_surv:
+                    surv_cap = 'full'       # no survivor can be dropped on the retry
+            count('attempts', stats['attempts'])
+        stats['stitch_ms'] = sp.ms
         return compact, num_valid, bool(ovf_out or ovf_cand or ovf_surv), stitched
 
 
@@ -489,24 +505,34 @@ def _unpack(packed: torch.Tensor, model) -> dict:
     return out
 
 
-def _exchange(local: torch.Tensor, group, extra=()):
+def _exchange(local: torch.Tensor, group, extra=(), stats: dict = None):
     """Every rank's rows ``local [n_r, F]`` concatenated in rank order, on
     every rank: the counts (and the ints of ``extra``) first, through the
     host group, then the rows padded to the largest count in one
-    ``all_gather`` on the device. Returns ``(rows, info [world, 1 + len(extra)],
+    ``all_gather`` on the device. The span ``ranks.exchange`` (counts
+    ``rows``, ``bytes``: what this rank received) times it, waits for the
+    slowest rank included; its ms are added to ``stats['exchange_ms']``
+    where ``stats`` is given. Returns ``(rows, info [world, 1 + len(extra)],
     bytes received)``."""
     p = dist.get_world_size(group)
-    info = [torch.zeros(1 + len(extra), dtype=torch.int64) for _ in range(p)]
-    dist.all_gather(info, torch.tensor([local.shape[0], *extra]), group=host_group(group))
-    info = torch.stack(info)
-    counts = info[:, 0].tolist()
-    m = max(counts)
-    if not m:
-        return local, info, 0
-    local = torch.cat([local, local.new_zeros((m - local.shape[0], local.shape[1]))])
-    parts = [torch.empty_like(local) for _ in range(p)]
-    dist.all_gather(parts, local, group=group)
-    return torch.cat([part[:c] for part, c in zip(parts, counts)]), info, p * local.numel() * 4
+    with span('ranks.exchange') as sp:
+        info = [torch.zeros(1 + len(extra), dtype=torch.int64) for _ in range(p)]
+        dist.all_gather(info, torch.tensor([local.shape[0], *extra]), group=host_group(group))
+        info = torch.stack(info)
+        counts = info[:, 0].tolist()
+        m = max(counts)
+        rows, nbytes = local, 0
+        if m:
+            local = torch.cat([local, local.new_zeros((m - local.shape[0], local.shape[1]))])
+            parts = [torch.empty_like(local) for _ in range(p)]
+            dist.all_gather(parts, local, group=group)
+            rows = torch.cat([part[:c] for part, c in zip(parts, counts)])
+            nbytes = p * local.numel() * 4
+        count('rows', rows.shape[0])
+        count('bytes', nbytes)
+    if stats is not None:
+        stats['exchange_ms'] = stats.get('exchange_ms', 0.) + sp.ms
+    return rows, info, nbytes
 
 
 def _suppressor(boxes, scores, kept_boxes, kept_scores, thresh) -> torch.Tensor:
@@ -527,11 +553,28 @@ def _final_rounds(tiled: TiledInference, cat: torch.Tensor, pool: torch.Tensor, 
     rank), run again with the rows of each rank's ``pool`` (its local
     stitch's suppressed rows, packed) that no kept row of a higher score
     suppresses, until there are none. Returns ``(det, keep, survivors
-    overflow, bytes received)``; ``tiled.stats`` gets ``final_nms`` (the NMS
-    passes), ``rounds``, ``restored`` and ``restore_exchange_ms``."""
+    overflow, bytes received)``.
+
+    The span ``ranks.final_rounds`` (counts ``rounds``, ``restored``) times
+    it; the exchanges of the restored rows are ``ranks.exchange`` spans
+    inside it. ``tiled.stats`` gets ``final_nms`` (the NMS passes),
+    ``rounds``, ``restored`` (the final NMS's runs, and the suppressed rows
+    that rejoined), ``final_nms_ms`` (the span's ms less its exchanges') and
+    the exchanges' ms added to ``exchange_ms``."""
+    stats = tiled.stats
+    stats.update(final_nms=[], rounds=0, restored=0)
+    exchanged = stats.setdefault('exchange_ms', 0.)
+    with span('ranks.final_rounds') as sp:
+        out = _rounds(tiled, cat, pool, group)
+        count('rounds', stats['rounds'])
+        count('restored', stats['restored'])
+    stats['final_nms_ms'] = sp.ms - (stats['exchange_ms'] - exchanged)
+    return out
+
+
+def _rounds(tiled: TiledInference, cat: torch.Tensor, pool: torch.Tensor, group):
     model, stats = tiled.model, tiled.stats
     s2 = 2 * model.samples
-    stats.update(final_nms=[], rounds=0, restored=0, restore_exchange_ms=0.)
     received = 0
     # the flat order of a kept row that suppresses each pool row (-1: none
     # known): a row stays suppressed while that row stays kept
@@ -561,9 +604,7 @@ def _final_rounds(tiled: TiledInference, cat: torch.Tensor, pool: torch.Tensor, 
         picked = kept_order[sup.clamp(min=0)] if len(kept_order) else sup
         by[test] = torch.where(sup >= 0, picked, -1)
         free = by < 0
-        t0 = time.perf_counter()
-        back, _, nbytes = _exchange(pool[free], group)
-        stats['restore_exchange_ms'] += (time.perf_counter() - t0) * 1e3
+        back, _, nbytes = _exchange(pool[free], group, stats=stats)
         received += nbytes
         pool, by = pool[~free], by[~free]
         if not back.shape[0]:
@@ -618,10 +659,14 @@ def multihost_tiled_inference(tiled: TiledInference, image: np.ndarray,
         descending score, ``num_tiles`` (over every rank), ``num_valid`` and
         ``overflow``, the largest of every rank's output, candidate, survivor
         and capacity flags and the final NMS's survivor flag.
-        ``tiled.stats`` holds this rank's ms by stage (``forward_ms``,
-        ``retry_ms``, ``stitch_ms`` of the local stitch, ``exchange_ms``,
-        ``final_nms_ms`` with its rounds and suppression tests, ``readback_ms``,
-        ``total_ms``; the exchanges' ms in ``exchange_ms``), ``exchange_bytes``
+        ``tiled.stats`` holds this rank's ms by stage, each from its span
+        (:mod:`..util.spans`): ``forward_ms``, ``retry_ms``, ``stitch_ms`` of
+        the local stitch (as :class:`TiledInference`'s), ``exchange_ms``
+        (every ``ranks.exchange``, the first and those of the restored rows:
+        waits for the slowest rank included), ``final_nms_ms``
+        (``ranks.final_rounds`` less its exchanges: the rounds and their
+        suppression tests), ``readback_ms`` (``tiled.readback``),
+        ``total_ms`` (``ranks.call``, the outer span); ``exchange_bytes``
         (what this rank received), ``rounds`` and ``restored`` (the final
         NMS's runs, and the suppressed rows that rejoined), the local
         stitch's NMS passes (``nms``) and the final NMS's (``final_nms``).
@@ -631,35 +676,29 @@ def multihost_tiled_inference(tiled: TiledInference, image: np.ndarray,
     model = tiled.model
     dev = model.device
     width = _pack_width(model)
-    t_start = time.perf_counter()
-    flat, t_local, residual = tiled.candidates(image, score_thresh, mask, point_mask,
-                                               point_mask_exclusive, part=(r, p))
-    stats = tiled.stats
-    local = pool = torch.zeros((0, width), dtype=torch.float32, device=dev)
-    overflow, stats['stitch_ms'] = residual, 0.
-    if flat is not None:
-        compact, num_valid, overflow, stitched = tiled._stitch(flat)
-        overflow = residual or overflow
-        local = _pack(compact, min(num_valid, compact['valid'].shape[0]))
-        gone = stitched['candidates'] & ~stitched['valid']      # the local stitch's suppressed
-        pool = _pack({k: stitched[k][gone] for k in KEYS + ('order',)}, int(gone.sum()))
+    with span('ranks.call') as call:
+        flat, t_local, residual = tiled.candidates(image, score_thresh, mask, point_mask,
+                                                   point_mask_exclusive, part=(r, p))
+        stats = tiled.stats
+        local = pool = torch.zeros((0, width), dtype=torch.float32, device=dev)
+        overflow, stats['stitch_ms'], stats['exchange_ms'] = residual, 0., 0.
+        if flat is not None:
+            compact, num_valid, overflow, stitched = tiled._stitch(flat)
+            overflow = residual or overflow
+            local = _pack(compact, min(num_valid, compact['valid'].shape[0]))
+            gone = stitched['candidates'] & ~stitched['valid']   # the local stitch's suppressed
+            pool = _pack({k: stitched[k][gone] for k in KEYS + ('order',)}, int(gone.sum()))
 
-    t0 = time.perf_counter()
-    cat, info, received = _exchange(local, group, (t_local, int(overflow)))
-    stats['exchange_ms'] = (time.perf_counter() - t0) * 1e3
+        cat, info, received = _exchange(local, group, (t_local, int(overflow)), stats)
+        det, keep, surv_ovf, back_bytes = _final_rounds(tiled, cat, pool, group)
+        stats['exchange_bytes'] = received + back_bytes
 
-    t0 = time.perf_counter()
-    det, keep, surv_ovf, back_bytes = _final_rounds(tiled, cat, pool, group)
-    stats['final_nms_ms'] = (time.perf_counter() - t0) * 1e3 - stats['restore_exchange_ms']
-    stats['exchange_ms'] += stats['restore_exchange_ms']
-    stats['exchange_bytes'] = received + back_bytes
-
-    t0 = time.perf_counter()
-    # by score as one process orders them, ties in its flat order
-    kept = _by_score(keep, det['scores'])[:int(keep.sum())]
-    out = {k: det[k][kept].cpu().numpy() for k in KEYS}
-    stats['readback_ms'] = (time.perf_counter() - t0) * 1e3
-    stats['total_ms'] = (time.perf_counter() - t_start) * 1e3
+        with span('tiled.readback') as sp:
+            # by score as one process orders them, ties in its flat order
+            kept = _by_score(keep, det['scores'])[:int(keep.sum())]
+            out = {k: det[k][kept].cpu().numpy() for k in KEYS}
+        stats['readback_ms'] = sp.ms
+    stats['total_ms'] = call.ms
     out['num_tiles'] = int(info[:, 1].sum())
     out['num_valid'] = int(keep.sum())
     out['overflow'] = bool(info[:, 2].max()) or bool(surv_ovf)

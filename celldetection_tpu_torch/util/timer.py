@@ -4,13 +4,17 @@ Counterpart of ``celldetection_tpu/util/timer.py``: named timers, ``timed``,
 ``Timer`` and ``print_timing``. Where the JAX package blocks on a probe
 program, the port calls ``torch.cuda.synchronize()`` (when a card is in use:
 CUDA is initialised); ``profiler_trace`` records ``torch.profiler`` and
-writes a Chrome trace into ``log_dir``.
+writes a Chrome trace into ``log_dir``. ``timed`` and ``Timer`` time their
+block as a span of :mod:`.spans` under their name, so that it shows in a
+profiler trace beside the port's own spans.
 """
 import os
 import time
 from contextlib import contextmanager
 
 import torch
+
+from .spans import span
 
 __all__ = ['start_timer', 'stop_timer', 'timed', 'Timer', 'profiler_trace', 'print_timing']
 
@@ -52,11 +56,8 @@ def stop_timer(key: str = 'default', cuda: bool = True, verbose: bool = True) ->
 
 @contextmanager
 def timed(key: str = 'default', verbose: bool = True):
-    start_timer(key)
-    try:
+    with Timer(key, verbose=verbose):
         yield
-    finally:
-        stop_timer(key, verbose=verbose)
 
 
 @contextmanager
@@ -89,12 +90,13 @@ class Timer:
     def __enter__(self):
         if self.sync:
             _sync()
-        self._t0 = time.perf_counter()
+        self._span = span(self.name).__enter__()
         return self
 
     def __exit__(self, *exc):
         if self.sync:
             _sync()
-        self.seconds = time.perf_counter() - self._t0
+        self._span.__exit__(*exc)
+        self.seconds = self._span.ms * 1e-3
         if self.verbose:
             print(f'{self.name}: {self.seconds * 1e3:.3f} ms')

@@ -10,7 +10,8 @@ tests hold them against one process and the JAX package:
   same path): equal across the ranks, the same kept detections as the port's
   single-process ``TiledInference``, and within ``test_torch_port_tiles.py``'s
   gates of the JAX package's ``TiledInference``; also with a foreground mask,
-  and on a one-tile image, where one rank has no tile;
+  and on a one-tile image, where one rank has no tile; its ``ranks.*`` spans
+  (``util/spans.py``) against its stats;
 * ``CPNTrainer.validate(distributed=True)`` over 4 images against one
   process's ``validate``: the same metrics and ``best_hparams``;
 * ``cpn_inference`` in a group of two ranks under ``'rank'`` (two arrays: one
@@ -62,7 +63,12 @@ thresh, kw = inp['thresh'], inp['tiled_kw']
 out = {}
 
 tiled = parallel.TiledInference(model, **kw)
+from celldetection_tpu_torch.util import spans
+spans.enable()
 res = parallel.multihost_tiled_inference(tiled, inp['image'], score_thresh=thresh)
+spans.disable()
+out['spans'], out['stats'] = spans.collect(), dict(tiled.stats)
+spans.reset()
 out['multihost'] = res
 out['passes'] = [[p['name'] for p in tiled.stats[k]] for k in ('nms', 'final_nms')]
 out['exchange_bytes'] = tiled.stats['exchange_bytes']
@@ -189,6 +195,30 @@ def test_multihost_tiled_inference_matches_one_process(setup, case):
             assert o['exchange_bytes'] > 0
     if case == 'one_tile':
         assert a['num_tiles'] == 1
+
+
+def test_multihost_stats_are_their_ranks_spans(setup):
+    """Each rank's ``ranks.call`` holds its tiling, forwards, local stitch,
+    exchanges and final rounds; the stats are the spans' ms."""
+    _, _, _, outs, _ = setup
+    for o in outs:
+        by, st = {}, o['stats']
+        for r in o['spans']:
+            by.setdefault(r['name'], []).append(r)
+        (call,), (rounds,) = by['ranks.call'], by['ranks.final_rounds']
+        assert call['parent'] is None and call['host_ms'] == st['total_ms']
+        assert all(r['request'] == call['id'] for r in o['spans'])
+        assert by['tiled.tile_image'][0]['counts'] == {'tiles_cut': 16, 'tiles_kept': 8}
+        ex = by['ranks.exchange']
+        assert ex[0]['parent'] == call['id'] and ex[0]['counts']['rows'] > 0
+        restores = [r for r in ex if r['parent'] == rounds['id']]
+        assert len(restores) == len(ex) - 1 == st['rounds']    # one exchange after each round
+        assert sum(r['host_ms'] for r in ex) == pytest.approx(st['exchange_ms'])
+        assert st['final_nms_ms'] == pytest.approx(
+            rounds['host_ms'] - sum(r['host_ms'] for r in restores))
+        assert sum(r['counts']['bytes'] for r in ex) == st['exchange_bytes']
+        assert rounds['counts'] == {'rounds': st['rounds'], 'restored': st['restored']}
+        assert 'restore_exchange_ms' not in st
 
 
 def test_final_nms_restores_rows_of_a_chain_across_ranks(setup):
