@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-``KERNELS`` lists the launch wrappers; each carries a ``launches`` counter.
-``nms_sweep`` is the entry point that drives the NMS kernels.
+``KERNELS`` lists the NMS kernels' launch wrappers; each carries a
+``launches`` counter. ``nms_sweep`` is the entry point that drives them.
+``head_conv.head_conv_kernel`` (the CPN heads' bf16 convolution, taken by
+``models/commons.py: head_conv``) counts its launches the same way.
 """
 from .nms import nms_bits_count, nms_bits_fill, nms_resolve, nms_sweep
 

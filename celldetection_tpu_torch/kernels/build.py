@@ -45,15 +45,18 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found: the CUDA kernels are built with the CUDA toolkit')
 
 
-def build_library(source: str, defines: tuple = ()) -> KernelLibrary:
+def build_library(source: str, defines: tuple = (), libraries: tuple = ()) -> KernelLibrary:
     """Compile ``csrc/<source>`` (if not built yet) and load it.
 
     Args:
         defines: macros to define (``-D``) for this build.
+        libraries: libraries to link (``-l``), e.g. ``'cuda'`` (libcuda) for
+            ``cuTensorMapEncodeTiled``.
     """
     src = os.path.join(CSRC, source)
     flags = NVCC_FLAGS + tuple(f'-D{d}' for d in defines)
-    digest = hashlib.sha1(' '.join(flags).encode())
+    libs = tuple(f'-l{name}' for name in libraries)
+    digest = hashlib.sha1(' '.join(flags + libs).encode())
     # the source and every header of csrc/ it may include
     for path in [src] + sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith('.cuh')):
         with open(path, 'rb') as f:
@@ -67,7 +70,7 @@ def build_library(source: str, defines: tuple = ()) -> KernelLibrary:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{out}.{os.getpid()}.tmp'
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, '-o', tmp, src],
+        proc = subprocess.run([_nvcc(), *flags, '-o', tmp, src, *libs],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

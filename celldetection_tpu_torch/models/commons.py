@@ -11,7 +11,9 @@ training), ``ConvNorm`` (203-221), ``ConvNormRelu`` (224-239),
 (278), ``BottleneckBlock`` (313-346), ``SqueezeExcitation`` (525),
 ``SelfAttention`` (546), ``LayerNorm2d`` (570), ``ReplayCache`` (579),
 ``MinibatchStdLayer`` (615), ``SpatialSplit`` (626), ``AdditiveNoise``
-(636), ``Stride`` (656) and ``DynamicTanh`` (667).
+(636), ``Stride`` (656) and ``DynamicTanh`` (667). ``head_conv``, which
+runs the heads' first convolution (on ``kernels/head_conv.py`` in bf16 on a
+card), has no counterpart there: the JAX package leaves it to XLA.
 
 The JAX blocks infer their spatial rank from the input; a torch module fixes
 it when it is built, so every block with a convolution or a pool takes
@@ -39,16 +41,18 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.head_conv import head_conv_kernel, takes as head_conv_takes
 from ..ops.commons import interpolate_nchw, minibatch_std_layer, split_spatially
 from ..util.device import resolve_device
+from ..util.spans import span
 
 __all__ = ['get_activation', 'Norm', 'NamedNorm', 'ConvNorm', 'ConvNormRelu', 'TwoConvNormRelu',
            'TwoConvNormLeaky', 'ResBlock', 'BottleneckBlock', 'ScaledTanh', 'ScaledSigmoid',
            'Normalize', 'Dropout2d', 'StochasticDepth', 'ReadOut', 'FusableReadOut',
-           'fused_head_conv', 'Fuse', 'same_padding', 'set_norm_group_', 'norm_overrides',
-           'kaiming_uniform', 'GroupedConv', 'SqueezeExcitation', 'SelfAttention', 'LayerNorm2d',
-           'ReplayCache', 'MinibatchStdLayer', 'SpatialSplit', 'AdditiveNoise', 'Stride',
-           'DynamicTanh']
+           'head_conv', 'fused_head_conv', 'Fuse', 'same_padding', 'set_norm_group_',
+           'norm_overrides', 'kaiming_uniform', 'GroupedConv', 'SqueezeExcitation',
+           'SelfAttention', 'LayerNorm2d', 'ReplayCache', 'MinibatchStdLayer', 'SpatialSplit',
+           'AdditiveNoise', 'Stride', 'DynamicTanh']
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9    # flax's convention: running = momentum * running + (1 - momentum) * batch
@@ -570,7 +574,8 @@ class ReadOut(nn.Module):
         return y if self.final_activation is None else self.final_activation(y)
 
     def forward(self, x):
-        return self.tail(self.block[0](x))
+        conv0 = self.block[0]
+        return self.tail(head_conv(x, conv0.weight, conv0.bias, self.stride, self.padding))
 
 
 class FusableReadOut(ReadOut):
@@ -585,18 +590,44 @@ class FusableReadOut(ReadOut):
         return self.block[0]
 
 
+def head_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], stride,
+              padding) -> torch.Tensor:
+    """A CPN head's first K x K convolution (2-D or 3-D, the rank of ``x``).
+
+    It takes the hand-written kernel (:func:`..kernels.head_conv.head_conv_kernel`)
+    where the input shows it can: on a CUDA card, with no gradient to keep,
+    and of the shapes and dtypes the kernel takes (:func:`..kernels.head_conv.takes`:
+    bf16, 2-D, stride 1, "same" padding of an odd K, channels multiples of 64).
+    Everything else (fp32 and TF32, the CPU, 3-D heads, training, other
+    strides) runs ``F.conv2d``/``F.conv3d`` as the module would;
+    ``head_conv.library`` counts those calls. The span ``cpn.head_conv``
+    counts ``kernel`` (1 or 0) and ``cout``.
+    """
+    kernel = (x.is_cuda and head_conv_takes(x, weight, bias, stride, padding)
+              and not (torch.is_grad_enabled()
+                       and any(t is not None and t.requires_grad for t in (x, weight, bias))))
+    with span('cpn.head_conv', kernel=int(kernel), cout=weight.shape[0]):
+        if kernel:
+            return head_conv_kernel(x, weight, bias)
+        head_conv.library += 1
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        return conv(x, weight, bias, stride=stride, padding=padding)
+
+
+head_conv.library = 0  # calls left to the library (F.conv2d/F.conv3d) since the last reset
+
+
 def fused_head_conv(x: torch.Tensor, convs: Sequence[nn.Module], stride: int,
                     padding: int) -> torch.Tensor:
     """One conv over the concatenated output channels of same-geometry convs
-    (2-D or 3-D, the rank of ``x``).
+    (2-D or 3-D, the rank of ``x``), through :func:`head_conv`.
 
     Every head keeps its own parameters; only the launch is shared: one pass
     over the input map instead of one per head, with the FLOPs unchanged.
     """
     weight = torch.cat([c.weight for c in convs], 0)
     bias = torch.cat([c.bias for c in convs], 0)
-    conv = F.conv2d if x.dim() == 4 else F.conv3d
-    return conv(x, weight, bias, stride=stride, padding=padding)
+    return head_conv(x, weight, bias, stride, padding)
 
 
 class Fuse(nn.Module):

@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero:
      and bf16 at batch 4: throughput, a profile of one step (top kernels and
      the slowest convolutions by input shape), peak memory, detections before
      and after NMS, the kernel launches of that run, and the NMS kernels
-     held against their plain versions and timed on that run's boxes;
+     held against their plain versions and timed on that run's boxes. Every
+     bf16 head conv of that run takes the heads' conv kernel
+     (``csrc/head_conv.cu``) and no fp32 one does; the kernel is held against
+     ``head_conv_plain`` on that run's own head inputs (the fused heads' and
+     the refinement head's) and timed beside its bound, the plain version
+     and cuDNN's heuristic choice. Phases 9, 15, 17, 19c and 21b run the
+     main path the same way;
   6. tiled inference (``TiledInference``) of full-width CpnU22, fp32 with
      TF32 off, on a 640^2 mosaic in 256^2 tiles at stride 192: the card
      against the CPU (tiles, detections, contours);
@@ -183,6 +189,8 @@ import celldetection_tpu_torch as ct
 from celldetection_tpu_torch import kernels, models
 from celldetection_tpu_torch.kernels import nms as knms
 from celldetection_tpu_torch.kernels import nms_bits_count, nms_bits_fill, nms_resolve
+from celldetection_tpu_torch.kernels.head_conv import (head_conv_kernel, head_conv_library,
+                                                       head_conv_plain)
 from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, large_layout,
                                                  nms_sweep, resolve_library, slots_layout)
 from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks,
@@ -193,7 +201,7 @@ from celldetection_tpu_torch.data import (collate_cpn_targets, conf2augmentation
                                           cpn_targets_single, random_geometric_objects,
                                           random_geometric_shapes)
 from celldetection_tpu_torch.data.datasets import SynthTrain
-from celldetection_tpu_torch.models import mamba
+from celldetection_tpu_torch.models import commons, mamba
 from celldetection_tpu_torch.native import contours2labels_native, rasterize_library
 from celldetection_tpu_torch.parallel.tiles import TiledInference, tile_image
 from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
@@ -219,6 +227,7 @@ TRAIN_SIZE, TRAIN_BATCH, TRAIN_IMAGES = 256, 8, 32
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 on the tensor cores
 # fp32 operations of one box-pair test (csrc/nms_bits.cu:suppresses): 4 min/max,
 # 2 sub, 2 clamps, inter mul, union add and sub, thresh mul, select, compare.
 PAIR_TEST_OPS = 14
@@ -784,6 +793,64 @@ def phase_card_vs_cpu(rng, title, build, tame=False, image=None, counts=(500, 20
     check(frac >= 0.99 and float(diffs.mean()) < 0.1, 'contours differ beyond the gates')
 
 
+class HeadConvRecorder:
+    """Keeps the operands of the first call of each shape that the CPN heads
+    make to the head conv kernel (``models.commons.head_conv`` looks up
+    ``head_conv_kernel`` at each call) inside the ``with`` block, to hold
+    against the plain version afterwards."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        def recording(x, weight, bias=None):
+            key = (tuple(x.shape), tuple(weight.shape))
+            if key not in self.calls:
+                self.calls[key] = (x.clone(), weight.clone(),
+                                   None if bias is None else bias.clone())
+            return head_conv_kernel(x, weight, bias)
+        commons.head_conv_kernel = recording
+        return self
+
+    def __exit__(self, *exc):
+        commons.head_conv_kernel = head_conv_kernel
+
+
+def hold_head_conv(card, label, x, weight, bias):
+    """The head conv kernel against ``head_conv_plain`` on a main path's own
+    head inputs, within two halves of a bf16 ulp (both round once, after fp32
+    sums in different orders) plus the error bound of fp32 sums of the depth's
+    terms, as ``tests/test_torch_port_head_conv.py`` holds it; then its time
+    (CUDA events) beside its bound, the plain version and cuDNN's heuristic
+    choice for the same bf16 ``F.conv2d`` (``library_ms``, a yardstick the
+    port does not call)."""
+    bsz, cin, h, w = x.shape
+    cout, _, k, _ = weight.shape
+    got = head_conv_kernel(x, weight, bias).float()
+    want = head_conv_plain(x, weight, bias).float()
+    diff = (got - want).abs()
+    tol = 2. ** -7 * want.abs() + cin * k * k * 2. ** -23 * want.abs().max()
+    worst = float((diff / tol.clamp_min(1e-30)).max())
+    check(bool((diff <= tol).all()),
+          f'{label}: the head conv kernel and its plain version differ, {worst:.3f} of the bound')
+    ops = 2. * bsz * h * w * cout * cin * k * k
+    nbytes = 2. * (x.numel() + weight.numel() + bsz * h * w * cout) + 4. * cout
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(input=[bsz, cin, h, w], weight=[cout, cin, k, k],
+               exact_share=float((diff == 0).float().mean()), max_diff_over_tol=worst,
+               ms=cuda_ms(lambda: head_conv_kernel(x, weight, bias), 5, warmup=1),
+               plain_ms=cuda_ms(lambda: head_conv_plain(x, weight, bias), 2, warmup=1),
+               library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(x, weight, bias,
+                                                                     padding=k // 2), 2, warmup=1),
+               bound_ms=max(t_ops, t_bytes), bound_by='operations' if t_ops >= t_bytes else 'bytes')
+    print(f'  [{card}] head_conv {label} {rec["input"]} x {rec["weight"]}: == plain within the '
+          f'bound (largest {worst:.3f} of it, {100 * rec["exact_share"]:.1f}% equal); '
+          f'{rec["ms"]:.3f} ms on the device (CUDA events), bound {rec["bound_ms"]:.3f} ms '
+          f'({rec["bound_by"]}), plain {rec["plain_ms"]:.3f} ms, cuDNN heuristic '
+          f'{rec["library_ms"]:.3f} ms', flush=True)
+    return rec
+
+
 def main_path(rng, card, errs, floor, title, build, tame=False,
               runs=(('fp32', None, 1), ('bf16', torch.bfloat16, 4)), score=1., size=TILE):
     """Phases 5, 9, 15 and 19c: the model ``build(compute_dtype=...)`` makes on
@@ -812,20 +879,40 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
 
     for k in kernels.KERNELS:          # the main path's run: counts from 0
         k.launches = 0
-    runs = []
+    head_conv_kernel.launches = commons.head_conv.library = 0
+    runs, head_inputs = [], {}
     for name, m, x, thresh in configs:
         before = sum(k.launches for k in kernels.KERNELS)
-        pre = m.forward_padded(x, score_thresh=thresh, nms=False)
-        out = m.forward_padded(x, score_thresh=thresh)
-        res = m(x, score_thresh=thresh)               # the user API: ragged per-image results
-        torch.cuda.synchronize()
+        heads = (head_conv_kernel.launches, commons.head_conv.library)
+        with HeadConvRecorder() as recorder:
+            pre = m.forward_padded(x, score_thresh=thresh, nms=False)
+            out = m.forward_padded(x, score_thresh=thresh)
+            res = m(x, score_thresh=thresh)           # the user API: ragged per-image results
+            torch.cuda.synchronize()
         runs.append((name, m, x, thresh, pre, out, res,
                      sum(k.launches for k in kernels.KERNELS) - before))
+        # every head of these models has channels that are multiples of 64:
+        # in bf16 each head conv takes the kernel, in fp32 none does
+        kernel_calls = head_conv_kernel.launches - heads[0]
+        library_calls = commons.head_conv.library - heads[1]
+        print(f'  {name}: head conv kernel launches {kernel_calls}, calls left to the library '
+              f'{library_calls}', flush=True)
+        if m.compute_dtype == torch.bfloat16:
+            check(kernel_calls > 0 and library_calls == 0,
+                  f'{name}: the bf16 heads did not all take the head conv kernel')
+            head_inputs.update({(name,) + key: v for key, v in recorder.calls.items()})
+        else:
+            check(kernel_calls == 0 and library_calls > 0,
+                  f'{name}: the fp32 heads launched the head conv kernel')
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     print(f'  kernel launches in the main path run: {launches}', flush=True)
     check(all(n > 0 for n in launches.values()), 'a kernel of the path was never launched')
 
-    kernel_rec = {}
+    kernel_rec = {'head_conv': dict(
+        launches=head_conv_kernel.launches, library_calls=commons.head_conv.library,
+        shapes=[hold_head_conv(card, f'{key[0]} main path', *operands)
+                for key, operands in head_inputs.items()])}
+    del head_inputs
     for name, m, x, thresh, pre, out, res, delta in runs:
         batch = x.shape[0]
         n_pre = pre['valid'].sum(1).tolist()
@@ -3090,7 +3177,8 @@ def main():
 
     print('== phase 2: build the kernels', flush=True)
     with ThreadPoolExecutor() as pool:                  # one nvcc per source, all at once
-        built = list(pool.map(lambda load: load(), (bits_library, resolve_library)))
+        built = list(pool.map(lambda load: load(),
+                              (bits_library, resolve_library, head_conv_library)))
     for lib in built:
         print(f'  {os.path.relpath(lib.path, HERE)}: built in {lib.build_seconds:.2f} s '
               f'(0 = reused)\n{lib.log.strip()}', flush=True)
@@ -3112,7 +3200,7 @@ def main():
     phase_card_vs_cpu(rng, 'phase 8: CpnResNet18FPN, 3 classes',
                       lambda **kw: models.CpnResNet18FPN(in_channels=3, classes=3,
                                                          max_detections=4096, **kw), tame=True)
-    launches_resnet, _ = main_path(
+    launches_resnet, rec_resnet = main_path(
         rng, card, errs, floor, 'phase 9: the ResNet path, CpnResNeXt101UNet (full width and '
         'depth)', lambda **kw: models.CpnResNeXt101UNet(in_channels=3, **FLAGSHIP, **kw),
         tame=True)
@@ -3159,6 +3247,19 @@ def main():
         'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms'],
         'bound_ms': rec[name]['bound_ms'], 'bound_by': rec[name]['bound_by'],
         'library_ms': None} for name in SOURCES]}
+    # the heads' conv kernel, at the flagship's fused heads (phase 9), with
+    # every shape of phases 5 and 9 under 'shapes'
+    heads, heads_resnet = rec['head_conv'], rec_resnet['head_conv']
+    shapes = heads['shapes'] + heads_resnet['shapes']
+    top = max(heads_resnet['shapes'], key=lambda r: r['bound_ms'])
+    record['kernels'].append({
+        'name': 'head_conv', 'route': 'cuda', 'source': 'celldetection_tpu_torch/csrc/head_conv.cu',
+        'replaces': None, 'launches': heads['launches'],
+        'launches_resnet': heads_resnet['launches'],
+        'max_diff_over_tol': max(r['max_diff_over_tol'] for r in shapes),
+        **{key: top[key] for key in ('input', 'weight', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                     'library_ms')},
+        'shapes': shapes})
     check(all(k[key] > 0. for k in record['kernels'] for key in ('ms', 'plain_ms', 'bound_ms')),
           f'a kernel lacks a measured time: {record}')
     print(card, flush=True)

@@ -4,9 +4,10 @@ Off, a span times its block and records nothing. Under ``torch.profiler``
 (or after ``enable()``) each span is also a ``user_annotation`` of the
 profiler's trace, and its record lines up with it on the trace's clock;
 records nest by ``parent`` and ``request`` as the calls do. A small
-CpnU22's ``forward_padded`` records ``cpn.forward`` over ``cpn.core``,
-``cpn.decode`` and ``cpn.nms``; ``TiledInference.stats`` holds its spans'
-ms. The ``ranks.*`` spans are held in ``test_torch_port_distributed_infer.py``.
+CpnU22's ``forward_padded`` records ``cpn.forward`` over ``cpn.core``
+(over its ``cpn.head_conv``s), ``cpn.decode`` and ``cpn.nms``;
+``TiledInference.stats`` holds its spans' ms. The ``ranks.*`` spans are
+held in ``test_torch_port_distributed_infer.py``.
 """
 import json
 import time
@@ -114,14 +115,26 @@ def test_forward_padded_records_its_layers_in_order(recorder, small_u22):
     with torch.no_grad():
         small_u22.forward_padded(x, score_thresh=0.5, nms=True)
     records = sorted(recorder.collect(), key=lambda r: r['t0_ns'])
-    assert [r['name'] for r in records][:4] == ['cpn.forward', 'cpn.core', 'cpn.decode',
-                                                'cpn.nms']
     top = records[0]
+    layers = [r for r in records if r['parent'] == top['id']]
+    assert [r['name'] for r in records[:1] + layers][:4] == ['cpn.forward', 'cpn.core',
+                                                             'cpn.decode', 'cpn.nms']
     assert top['parent'] is None and top['counts'] == {'batch': 1, 'k': 64}
-    for r in records[1:4]:
+    for r in layers[:3]:
         assert r['parent'] == top['id'] and r['request'] == top['id']
         assert top['t0_ns'] <= r['t0_ns'] <= r['t1_ns'] <= top['t1_ns']
-    assert records[2]['counts'] == {'refine_iters': small_u22.refinement_iterations}
+    assert layers[1]['counts'] == {'refine_iters': small_u22.refinement_iterations}
+    # inside cpn.core: the fused contour heads' conv0, then the refinement head's
+    core = layers[0]
+    heads = [r for r in records if r['name'] == 'cpn.head_conv']
+    c = small_u22.core
+    fused = sum(getattr(c, f'{name}_head').conv0.out_channels for name, *_ in c.specs)
+    assert [r['counts'] for r in heads] == [
+        {'kernel': 0, 'cout': fused},
+        {'kernel': 0, 'cout': c.refinement_head.block[0].out_channels}]
+    for r in heads:
+        assert r['parent'] == core['id'] and r['request'] == top['id']
+        assert core['t0_ns'] <= r['t0_ns'] <= r['t1_ns'] <= core['t1_ns']
 
 
 def test_tiled_stats_are_their_spans_ms(recorder, small_u22):
