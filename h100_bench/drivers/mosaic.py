@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from .. import harness, judge, roofline, trace, traffic, weights
+from .. import harness, judge, roofline, trace, traffic
 from ..reference import cpn, stitch
 
 STATS = ('forward_ms', 'retry_ms', 'stitch_ms', 'readback_ms', 'total_ms')
@@ -39,8 +39,7 @@ class Mosaic:
         from celldetection_tpu_torch.parallel.tiles import TiledInference
         mix, cell = self.mix, self.cell
         self.seed = seed
-        self.weights = weights.make_weights(cell.ref.shapes(self.cfg), seed, self.dev,
-                                            self.cfg.get('weight_factors', ()))
+        self.weights = harness.cell_weights(cell, seed)
         if model is None:
             model = harness.build_program(cell, self.weights)
         else:

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from .. import harness, judge, roofline, trace, traffic, weights
+from .. import harness, judge, roofline, trace, traffic
 from ..reference import cpn
 
 
@@ -34,8 +34,7 @@ class Tiles:
         """Weights, program, crop pool and crop corners of ``seed``."""
         mix, cell = self.mix, self.cell
         self.seed = seed
-        self.weights = weights.make_weights(cell.ref.shapes(self.cfg), seed, self.dev,
-                                            self.cfg.get('weight_factors', ()))
+        self.weights = harness.cell_weights(cell, seed)
         if model is None:
             model = harness.build_program(cell, self.weights)
         else:

@@ -6,7 +6,23 @@ with its plain reference ``reference/<config>.py``) and a traffic mix
 ``drivers/<kind>.py``); its limits are ``limits/<cell>.json``; each per-layer
 metric is read by ``layer_metrics/<metric>.py``. A new cell, configuration,
 mix or metric is a new file of its own.
+
+Two hooks let a configuration say more than sizes, as data and reference:
+
+- ``backbone_kwargs`` in the configuration's file goes to the model's
+  constructor (:func:`backbone_kwargs`). A value ``{"module": <name>, ...}``
+  there becomes ``functools.partial(celldetection_tpu_torch.models.<name>,
+  ...)`` for a name of that package's ``__all__``, as
+  ``{"secondary_block": {"module": "MambaLayer", "d_state": 16}}``; every
+  other value goes as it is. A configuration without the key builds with no
+  ``backbone_kwargs`` argument.
+- ``init_weights(p, cfg, gen)`` in the reference module sets leaves of the
+  weights ``p`` in place (:func:`cell_weights`): after the default draw of
+  :mod:`.weights`, before the configuration's ``weight_factors``, from a
+  generator of its own, so every leaf it leaves alone is the default's bit
+  for bit.
 """
+import functools
 import importlib
 import importlib.util
 import json
@@ -15,6 +31,8 @@ import sys
 from dataclasses import dataclass, field
 
 import torch
+
+from . import weights as weights_lib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -61,17 +79,49 @@ def driver(cell: Cell):
     return importlib.import_module(f"h100_bench.drivers.{cell.mix['kind']}")
 
 
-def build_program(cell: Cell, weights: dict):
-    """The program's CPN of the configuration, on the cell's device, with ``weights``."""
+def cell_weights(cell: Cell, seed: int) -> dict:
+    """The cell's weights from ``seed``: the default draw of the reference's
+    shapes, then its ``init_weights`` where it has one, then ``weight_factors``."""
+    cfg, init = cell.cfg, getattr(cell.ref, 'init_weights', None)
+    return weights_lib.make_weights(
+        cell.ref.shapes(cfg), seed, cell.device, cfg.get('weight_factors', ()),
+        None if init is None else lambda p, gen: init(p, cfg, gen))
+
+
+def backbone_kwargs(cell: Cell) -> dict:
+    """The configuration's ``backbone_kwargs`` as the constructor takes them:
+    each value ``{"module": <name>, **options}`` made ``functools.partial(
+    celldetection_tpu_torch.models.<name>, **options)``."""
+    from celldetection_tpu_torch import models
+    out = {}
+    for key, value in cell.cfg['backbone_kwargs'].items():
+        if isinstance(value, dict) and 'module' in value:
+            options = dict(value)
+            name = options.pop('module')
+            if name not in models.__all__:
+                raise ValueError(f"configuration {cell.entry['config']!r}: backbone_kwargs "
+                                 f"{key!r} names module {name!r}, which is not in "
+                                 f"celldetection_tpu_torch.models.__all__")
+            value = functools.partial(getattr(models, name), **options)
+        out[key] = value
+    return out
+
+
+def build_program(cell: Cell, weights: dict = None):
+    """The program's CPN of the configuration, on the cell's device, with
+    ``weights`` (with the constructor's own state where it is None)."""
     from celldetection_tpu_torch.models import cpn as port_cpn
     cfg = cell.cfg
     kwargs = {k: cfg[k] for k in ('order', 'samples', 'max_detections', 'refinement_iterations',
                                   'nms_thresh', 'refinement_margin')}
+    if 'backbone_kwargs' in cfg:
+        kwargs['backbone_kwargs'] = backbone_kwargs(cell)
     with torch.device(cell.device):
         model = port_cpn.get_cpn(cfg['model'])(
             cfg['in_channels'], device=cell.device, torch_init=False,
             compute_dtype=DTYPES[cell.mix['precision']], **kwargs)
-    model.load_state_dict(weights, strict=True)
+    if weights is not None:
+        model.load_state_dict(weights, strict=True)
     return model.eval()
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from h100_bench import harness, judge, weights
+from h100_bench import harness, judge
 from h100_bench.reference import cpn, stitch
 from h100_bench.tests.conftest import small_cell
 
@@ -17,8 +17,7 @@ CELLS = ['u22_tiles_fp32_b1', 'rx101_tiles_bf16_b4']
 
 def _program(cell, seed=3, precision='fp32'):
     cell.mix = dict(cell.mix, precision=precision)
-    w = weights.make_weights(cell.ref.shapes(cell.cfg), seed, cell.device,
-                             cell.cfg.get('weight_factors', ()))
+    w = harness.cell_weights(cell, seed)
     return harness.build_program(cell, w), w
 
 
