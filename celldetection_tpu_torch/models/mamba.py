@@ -9,18 +9,38 @@ combines the same affine maps in another order, so the two agree to float32
 rounding. Its backward is the same scan run from the end (``_LinearRecurrence``),
 so autograd keeps two ``[B, L, D, N]`` tensors, not two a round.
 
-Layouts and conventions follow the JAX package, not ``mamba_ssm``: Δ has
-rank 1 (``x_proj`` gives ``2 d_state + 1`` outputs), ``dt_proj`` has a
-bias, ``A = -exp(A_log)``, softplus is ``logaddexp(x, 0)``, and the norm is
-flax's ``LayerNorm`` (epsilon 1e-6, statistics in float32). The causal
-depthwise convolution is a ``Conv1d(groups=d_inner)`` after a left pad of
-``d_conv - 1``.
+Layouts and conventions follow the JAX package, not ``mamba_ssm``:
+``dt_proj`` has a bias, ``A = -exp(A_log)``, softplus is ``logaddexp(x, 0)``,
+and the norm is flax's ``LayerNorm`` (epsilon 1e-6, statistics in float32).
+The causal depthwise convolution is a ``Conv1d(groups=d_inner)`` after a
+left pad of ``d_conv - 1``. Δ's rank ``dt_rank`` defaults to 1, the JAX
+package's (``x_proj`` gives ``2 d_state + 1`` outputs, ``dt_proj`` is
+``Linear(1, d_inner)``); ``dt_rank='auto'`` is ``mamba_ssm``'s,
+``ceil(d_model / 16)``.
+
+Spans (:mod:`..util.spans`): ``mamba.layer`` over ``MambaLayer.forward``
+(counts ``batch``, ``tokens``, ``d_model``, ``d_inner``, ``d_state``,
+``dt_rank``) holds ``mamba.scan`` over the call of :func:`selective_scan`
+(``batch``, ``tokens``, ``d_inner``, ``d_state``, ``elem_bytes`` of ``u``).
 """
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..util.spans import span
+
 __all__ = ['selective_scan', 'Mamba', 'MambaLayer', 'FlaxLayerNorm']
+
+
+def resolve_dt_rank(dt_rank, d_model: int) -> int:
+    """Δ's rank: an int as it is, ``'auto'`` ``ceil(d_model / 16)`` (``mamba_ssm``'s)."""
+    if dt_rank == 'auto':
+        return math.ceil(d_model / 16)
+    if isinstance(dt_rank, bool) or not isinstance(dt_rank, int) or dt_rank < 1:
+        raise ValueError(f"dt_rank must be a positive int or 'auto', not {dt_rank!r}")
+    return dt_rank
 
 
 def _affine_scan(gain: torch.Tensor, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -106,16 +126,19 @@ class FlaxLayerNorm(nn.Module):
 
 
 class Mamba(nn.Module):
-    """Mamba block: a gated selective-SSM token mixer over ``[B, L, d_model]``."""
+    """Mamba block: a gated selective-SSM token mixer over ``[B, L, d_model]``;
+    Δ of rank ``dt_rank`` (an int or ``'auto'``, see :func:`resolve_dt_rank`)."""
 
-    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2):
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
+                 dt_rank=1):
         super().__init__()
         self.d_state, self.d_conv = d_state, d_conv
-        d_inner = expand * d_model
+        self.dt_rank = resolve_dt_rank(dt_rank, d_model)
+        d_inner = self.d_inner = expand * d_model
         self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
         self.conv1d = nn.Conv1d(d_inner, d_inner, d_conv, groups=d_inner)
-        self.x_proj = nn.Linear(d_inner, 2 * d_state + 1, bias=False)
-        self.dt_proj = nn.Linear(1, d_inner)
+        self.x_proj = nn.Linear(d_inner, self.dt_rank + 2 * d_state, bias=False)
+        self.dt_proj = nn.Linear(self.dt_rank, d_inner)
         self.A_log = nn.Parameter(torch.log(torch.arange(1, d_state + 1, dtype=torch.float32)
                                             ).expand(d_inner, d_state).contiguous())
         self.D = nn.Parameter(torch.ones(d_inner))
@@ -126,24 +149,32 @@ class Mamba(nn.Module):
         # depthwise causal convolution over the sequence
         xs = self.conv1d(F.pad(xs.transpose(1, 2), (self.d_conv - 1, 0))).transpose(1, 2)
         xs = F.silu(xs)
-        delta, Bm, Cm = self.x_proj(xs).split([1, self.d_state, self.d_state], -1)
+        delta, Bm, Cm = self.x_proj(xs).split([self.dt_rank, self.d_state, self.d_state], -1)
         delta = self.dt_proj(delta)
         delta = torch.logaddexp(delta, torch.zeros_like(delta))      # jax.nn.softplus
-        y = selective_scan(xs, delta, -torch.exp(self.A_log), Bm, Cm, self.D)
+        batch, tokens = xs.shape[:2]
+        with span('mamba.scan', batch=batch, tokens=tokens, d_inner=self.d_inner,
+                  d_state=self.d_state, elem_bytes=xs.element_size()):
+            y = selective_scan(xs, delta, -torch.exp(self.A_log), Bm, Cm, self.D)
         return self.out_proj(y * F.silu(z))
 
 
 class MambaLayer(nn.Module):
     """LayerNorm and Mamba over the flattened spatial positions of NC... input,
     added to it: a ``secondary_block`` of an encoder stage or a decoder level,
-    built as ``MambaLayer(channels)``."""
+    built as ``MambaLayer(channels)`` (or a ``functools.partial`` of it with
+    its options)."""
 
-    def __init__(self, channels: int, d_state: int = 16, d_conv: int = 4, expand: int = 2):
+    def __init__(self, channels: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
+                 dt_rank=1):
         super().__init__()
         self.norm = FlaxLayerNorm(channels)
-        self.mamba = Mamba(channels, d_state, d_conv, expand)
+        self.mamba = Mamba(channels, d_state, d_conv, expand, dt_rank)
 
     def forward(self, x):
-        seq = x.flatten(2).transpose(1, 2)                   # [n, h*w, c], row-major positions
-        out = seq + self.mamba(self.norm(seq))
-        return out.transpose(1, 2).reshape(x.shape)
+        m = self.mamba
+        with span('mamba.layer', batch=x.shape[0], tokens=math.prod(x.shape[2:]),
+                  d_model=x.shape[1], d_inner=m.d_inner, d_state=m.d_state, dt_rank=m.dt_rank):
+            seq = x.flatten(2).transpose(1, 2)               # [n, h*w, c], row-major positions
+            out = seq + m(self.norm(seq))
+            return out.transpose(1, 2).reshape(x.shape)
