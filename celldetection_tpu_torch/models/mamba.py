@@ -2,12 +2,16 @@
 
 Counterpart of ``celldetection_tpu/models/mamba.py``: ``selective_scan``
 (19-43), ``Mamba`` (46-73) and ``MambaLayer`` (76-92). The JAX package
-computes the scan with ``jax.lax.associative_scan``; here it is a log-depth
-Hillis-Steele scan in plain torch (``ceil(log2 L)`` rounds over the whole
-sequence written into two buffers in turn, no loop over the tokens), which
-combines the same affine maps in another order, so the two agree to float32
-rounding. Its backward is the same scan run from the end (``_LinearRecurrence``),
-so autograd keeps two ``[B, L, D, N]`` tensors, not two a round.
+computes the scan with ``jax.lax.associative_scan``. Here, on a CUDA card with
+fp32 operands and no gradient wanted, it is one fused hand-written kernel that
+keeps the states in registers (``kernels/selective_scan.py``); everywhere else
+(training, bf16, the CPU) it is a log-depth Hillis-Steele scan in plain torch
+(``ceil(log2 L)`` rounds over the whole sequence written into two buffers in
+turn, no loop over the tokens). Both combine the same affine maps in another
+order than the JAX package, so they agree with it to float32 rounding. The
+torch scan's backward is the same scan run from the end
+(``_LinearRecurrence``), so autograd keeps two ``[B, L, D, N]`` tensors, not
+two a round.
 
 Layouts and conventions follow the JAX package, not ``mamba_ssm``:
 ``dt_proj`` has a bias, ``A = -exp(A_log)``, softplus is ``logaddexp(x, 0)``,
@@ -21,7 +25,9 @@ package's (``x_proj`` gives ``2 d_state + 1`` outputs, ``dt_proj`` is
 Spans (:mod:`..util.spans`): ``mamba.layer`` over ``MambaLayer.forward``
 (counts ``batch``, ``tokens``, ``d_model``, ``d_inner``, ``d_state``,
 ``dt_rank``) holds ``mamba.scan`` over the call of :func:`selective_scan`
-(``batch``, ``tokens``, ``d_inner``, ``d_state``, ``elem_bytes`` of ``u``).
+(``batch``, ``tokens``, ``d_inner``, ``d_state``, ``elem_bytes`` of ``u``;
+``kernel`` 1 where the call ran on the fused kernel, left out on the torch
+path).
 """
 import math
 
@@ -29,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..util.spans import span
+from ..kernels.selective_scan import selective_scan_kernel, takes as kernel_takes
+from ..util.spans import count, span
 
 __all__ = ['selective_scan', 'Mamba', 'MambaLayer', 'FlaxLayerNorm']
 
@@ -100,7 +107,23 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: tor
 
     Returns:
         ``[B, L, D]``.
+
+    Where the operands show that the fused kernel computes it
+    (:func:`..kernels.selective_scan.takes`: fp32 on a CUDA card, no gradient
+    wanted, d_state 4, 8 or 16) the kernel runs and counts ``kernel`` on the
+    innermost recording span (``mamba.scan``); else :func:`selective_scan_torch`.
     """
+    if kernel_takes(u, delta, A, B, C, D):
+        count('kernel')
+        return selective_scan_kernel(u, delta, A, B, C, D)
+    return selective_scan_torch(u, delta, A, B, C, D)
+
+
+def selective_scan_torch(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                         C: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """:func:`selective_scan` as the log-depth torch scan, on any device and
+    dtype, with a backward: ``[B, L, D, N]`` gains and inputs, their
+    recurrence by :func:`_affine_scan`, the contraction with C."""
     gain = torch.exp(delta[..., None] * A)                       # [B, L, D, N]
     x = _LinearRecurrence.apply(gain, delta[..., None] * B[..., None, :] * u[..., None])
     y = torch.einsum('bln,bldn->bld', C, x)

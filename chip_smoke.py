@@ -129,10 +129,14 @@ Phases, in order; any failure exits non-zero:
      ``conf2tweaks_`` of the norms' momentum to 0.05 after the trainer is
      built, Adadelta with ``StepLR``, and the running statistics of one step
      against flax's update worked out on the card; (c) ``selective_scan``
-     against a float64 sequential scan, then full-width CpnResNet50UNet with
+     (the fused kernel, ``csrc/selective_scan.cu``) against a float64
+     sequential scan within 1e-5 + 1e-4 |ref| at 2 x 1003 x 8 and at the
+     Mamba CPN's four stage shapes on a 1024^2 tile (65,536 x 512 to 1024 x
+     4096, d_state 16), then full-width CpnResNet50UNet with
      a ``MambaLayer`` after every stage card against CPU at 256^2 and on
-     512^2 tiles as phase 5 (fp32 batch 1, bf16 batch 4; the kernel launches
-     of that run are ``launches_mamba``), with the scan's share of the
+     512^2 tiles as phase 5 (fp32 batch 1, bf16 batch 4; the NMS kernel launches
+     of that run are ``launches_mamba``; the fp32 run's scans must take the
+     fused kernel, the bf16 run's the torch scan), with the scan's share of the
      forward; then the model in bf16 at batch 4 held against fp32 on the
      same inputs (4 toy images of 512^2) under the bf16 gates of the CPU
      tests (counts within 8%, 92% of the fp32 boxes matched at IoU 0.8, their
@@ -191,6 +195,8 @@ from celldetection_tpu_torch.kernels import nms as knms
 from celldetection_tpu_torch.kernels import nms_bits_count, nms_bits_fill, nms_resolve
 from celldetection_tpu_torch.kernels.head_conv import (head_conv_kernel, head_conv_library,
                                                        head_conv_plain)
+from celldetection_tpu_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                             selective_scan_library)
 from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, large_layout,
                                                  nms_sweep, resolve_library, slots_layout)
 from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks,
@@ -208,6 +214,7 @@ from celldetection_tpu_torch.parallel.train import TrainState, make_train_step
 from celldetection_tpu_torch.runtime.cpn_inference import infer_input, preprocess, tiled_models
 from celldetection_tpu_torch.runtime.trainer import CPNTrainer
 from celldetection_tpu_torch.util.config import conf2optimizer
+from celldetection_tpu_torch.util import spans as span_recorder
 from celldetection_tpu_torch.util import surgery, system, timer
 from celldetection_tpu_torch.util.logging import MetricsLogger
 from celldetection_tpu_torch.util.serialization import load_model, load_model_meta, save_model
@@ -884,6 +891,7 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
     for name, m, x, thresh in configs:
         before = sum(k.launches for k in kernels.KERNELS)
         heads = (head_conv_kernel.launches, commons.head_conv.library)
+        scans = selective_scan_kernel.launches
         with HeadConvRecorder() as recorder:
             pre = m.forward_padded(x, score_thresh=thresh, nms=False)
             out = m.forward_padded(x, score_thresh=thresh)
@@ -904,6 +912,14 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
         else:
             check(kernel_calls == 0 and library_calls > 0,
                   f'{name}: the fp32 heads launched the head conv kernel')
+        # the Mamba scans of an fp32 model take the fused scan kernel, a bf16 one's the torch scan
+        scans = selective_scan_kernel.launches - scans
+        fused = m.compute_dtype != torch.bfloat16 and any(
+            isinstance(mod, mamba.Mamba) for mod in m.modules())
+        print(f'  {name}: selective scan kernel launches {scans}', flush=True)
+        check(scans > 0 if fused else scans == 0,
+              f'{name}: {scans} selective scan kernel launches, '
+              f'expected {"some" if fused else "none"}')
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     print(f'  kernel launches in the main path run: {launches}', flush=True)
     check(all(n > 0 for n in launches.values()), 'a kernel of the path was never launched')
@@ -2735,9 +2751,34 @@ def phase_demo_multiclass(card):
     check(worst_untweaked > 1., '19b: the tweak did not change the running statistics')
 
 
+# the Mamba CPN's scans on a 1024^2 tile (d_state 16, expand 2): tokens, d_inner a stage
+MAMBA_STAGES = ((65536, 512), (16384, 1024), (4096, 2048), (1024, 4096))
+
+
+def float64_scan(u, delta, A, B, C, D, block=512):
+    """``selective_scan`` in float64 on the operands' device, token by token
+    from a zero state (the gains and drives of ``block`` tokens formed at a
+    time, then one update a token)."""
+    u, delta, A, B, C, D = (t.double() for t in (u, delta, A, B, C, D))
+    s = u.new_zeros(u.shape[0], u.shape[2], A.shape[1])
+    ys = []
+    for t0 in range(0, u.shape[1], block):
+        dt = delta[:, t0:t0 + block]
+        gain = torch.exp(dt[..., None] * A).transpose(0, 1).contiguous()   # [T, b, d, n]
+        drive = ((dt * u[:, t0:t0 + block])[..., None] * B[:, t0:t0 + block, None, :]
+                 ).transpose(0, 1).contiguous()
+        states = torch.empty_like(gain)
+        for i in range(gain.shape[0]):
+            s = torch.addcmul(drive[i], gain[i], s, out=states[i])
+        ys.append(torch.einsum('tbdn,btn->btd', states, C[:, t0:t0 + block]))
+    return torch.cat(ys, 1) + u * D
+
+
 def scan_share(card, build, runs, size, rng):
     """The Mamba scan's share of ``forward_padded(nms=True)``: CUDA events
-    around every ``selective_scan`` call against events around the forward."""
+    around every ``selective_scan`` call against events around the forward.
+    A first forward under the span recorder: every ``mamba.scan`` span of an
+    fp32 model counts ``kernel`` 1 (the fused kernel ran), a bf16 model's none."""
     original = mamba.selective_scan
     for name, dtype, batch in runs:
         m = build(compute_dtype=dtype)
@@ -2753,7 +2794,16 @@ def scan_share(card, build, runs, size, rng):
             spans.append((a, b))
             return y
 
-        m.forward_padded(x)
+        span_recorder.reset()
+        span_recorder.enable()
+        try:
+            m.forward_padded(x)
+            kernel = [r['counts'].get('kernel', 0) for r in span_recorder.collect()
+                      if r['name'] == 'mamba.scan']
+        finally:
+            span_recorder.disable()
+            span_recorder.reset()
+        check(kernel == [int(dtype is None)] * 4, f'{name}: mamba.scan spans count kernel {kernel}')
         mamba.selective_scan = timed
         try:
             total = []
@@ -2770,7 +2820,7 @@ def scan_share(card, build, runs, size, rng):
         fwd, scan = sorted(total)[1]
         print(f'  [{card}] {name} batch {batch} at {size}^2: forward_padded(nms=True) {fwd:.2f} '
               f'ms, the {len(spans)} selective_scan calls {scan:.2f} ms, share {scan / fwd:.3f} '
-              f'(CUDA events, median of 3)', flush=True)
+              f'(CUDA events, median of 3); the mamba.scan spans count kernel {kernel}', flush=True)
         del m, x
         torch.cuda.empty_cache()
 
@@ -2781,23 +2831,30 @@ def phase_mamba(rng, card, errs, floor):
     sequential scan, card against CPU at 256^2, the main path on 512^2 tiles
     (fp32 batch 1, bf16 batch 4) and the scan's share of the forward.
     Returns the NMS kernels' launches of the main path."""
-    print('== phase 19c: selective_scan on the card against a float64 sequential scan', flush=True)
-    g = np.random.RandomState(SEED)
-    B, L, D, N = 2, 1003, 8, 16
-    u, delta = g.randn(B, L, D), np.abs(g.randn(B, L, D)) * 0.1 + 0.01
-    A, Bm, Cm, Dp = -(np.abs(g.randn(D, N)) + 0.1), g.randn(B, L, N), g.randn(B, L, N), g.randn(D)
-    args = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (u, delta, A, Bm, Cm, Dp)]
-    got = mamba.selective_scan(*args).cpu().numpy()
-    x, ys = np.zeros((B, D, N)), []
-    for t in range(L):
-        x = np.exp(delta[:, t, :, None] * A) * x + delta[:, t, :, None] * Bm[:, t, None, :] * \
-            u[:, t, :, None]
-        ys.append(np.einsum('bn,bdn->bd', Cm[:, t], x))
-    want = np.stack(ys, 1) + u * Dp
-    err = float(np.max(np.abs(got - want) / (1e-5 + 1e-4 * np.abs(want))))
-    print(f'  B, L, D, N = {B}, {L}, {D}, {N}: max |card - float64| / (1e-5 + 1e-4 |ref|) = '
-          f'{err:.3f}', flush=True)
-    check(err <= 1., 'selective_scan on the card differs from the sequential scan')
+    print('== phase 19c: selective_scan on the card (the fused kernel) against a float64 '
+          'sequential scan', flush=True)
+    worst = 0.
+    for B, L, D in ((2, 1003, 8),) + tuple((1, L, D) for L, D in MAMBA_STAGES):
+        g = np.random.RandomState(SEED + L)
+        u, delta = g.randn(B, L, D), np.abs(g.randn(B, L, D)) * 0.1 + 0.01
+        A, Bm, Cm = -(np.abs(g.randn(D, 16)) + 0.1), g.randn(B, L, 16), g.randn(B, L, 16)
+        args = [torch.from_numpy(a.astype(np.float32)).cuda()
+                for a in (u, delta, A, Bm, Cm, g.randn(D))]
+        before = selective_scan_kernel.launches
+        got = mamba.selective_scan(*args)
+        torch.cuda.synchronize()
+        want = float64_scan(*args)
+        err = float(((got.double() - want).abs() / (1e-5 + 1e-4 * want.abs())).max())
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        worst = max(worst, err)
+        print(f'  B, L, D, N = {B}, {L}, {D}, 16: max |card - float64| / (1e-5 + 1e-4 |ref|) = '
+              f'{err:.4f}; max |card - float64| / max |ref| = {rel:.3e}; kernel launches '
+              f'{selective_scan_kernel.launches - before}', flush=True)
+        check(selective_scan_kernel.launches == before + 1, 'selective_scan took the torch scan')
+        check(err <= 1., f'selective_scan on the card differs from the sequential scan at '
+              f'{B, L, D}')
+        del args, got, want
+    print(f'  largest error over the shapes: {worst:.4f} of the tolerance', flush=True)
 
     def build(**kw):
         return models.CpnResNet50UNet(in_channels=3, backbone_kwargs={
@@ -3178,7 +3235,8 @@ def main():
     print('== phase 2: build the kernels', flush=True)
     with ThreadPoolExecutor() as pool:                  # one nvcc per source, all at once
         built = list(pool.map(lambda load: load(),
-                              (bits_library, resolve_library, head_conv_library)))
+                              (bits_library, resolve_library, head_conv_library,
+                               selective_scan_library)))
     for lib in built:
         print(f'  {os.path.relpath(lib.path, HERE)}: built in {lib.build_seconds:.2f} s '
               f'(0 = reused)\n{lib.log.strip()}', flush=True)

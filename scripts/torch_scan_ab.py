@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Time the Mamba ``selective_scan`` on one CUDA card: the port's scan against an out-of-place one.
 
-``celldetection_tpu_torch/models/mamba.py: selective_scan`` is a log-depth
-Hillis-Steele scan in plain torch over ``[B, L, D, N]`` tensors, each round
-written into the other of two buffers, with a hand-written backward (the
-same scan from the end). The out-of-place design below (kept here only to
-time against) needs no backward of its own: each round is
+``celldetection_tpu_torch/models/mamba.py: selective_scan_torch`` (the scan
+``selective_scan`` runs for bf16, for training and on the CPU; fp32 inference
+on the card takes the fused kernel, which ``scripts/torch_selective_scan.py``
+times) is a log-depth Hillis-Steele scan in plain torch over ``[B, L, D, N]``
+tensors, each round written into the other of two buffers, with a
+hand-written backward (the same scan from the end). The out-of-place design
+below (kept here only to time against) needs no backward of its own: each
+round is
 ``x = addcmul(x, gain, pad(x[:, :-step]))`` and
 ``gain = gain * pad(gain[:, :-step], value=1)``, and autograd keeps every
 round's tensors.
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from celldetection_tpu_torch.models.mamba import selective_scan  # noqa: E402
+from celldetection_tpu_torch.models.mamba import selective_scan_torch  # noqa: E402
 
 N_STATE = 16
 STAGES = ((128 * 128, 512), (64 * 64, 1024), (32 * 32, 2048), (16 * 16, 4096))
@@ -53,7 +56,7 @@ def out_of_place_scan(u, delta, A, B, C, D):
     return y + u * D
 
 
-DESIGNS = {'port': selective_scan, 'out of place': out_of_place_scan}
+DESIGNS = {'port': selective_scan_torch, 'out of place': out_of_place_scan}
 
 
 def operands(batch, length, channels, dtype, grad):
