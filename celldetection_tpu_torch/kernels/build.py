@@ -1,13 +1,20 @@
-"""Build a CUDA source of ``csrc/`` into a shared library and load it with ctypes.
+"""The one seam of the hand-written kernels: build, load, launch and count.
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` at first use, into
+Each source of ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` at first use, into
 ``celldetection_tpu_torch/_build/`` (listed in ``.gitignore``); the library
 name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header rebuilds; a build with extra
 ``-D`` macros (an instrumented variant) is a library of its own.
 The sources expose a plain C interface: no PyTorch headers, so a build takes
-seconds.
+seconds. Each C entry takes its stream last and returns 0 or a CUDA error,
+which ``cdt_cuda_error_string`` names.
+
+:func:`load` builds a source and declares its entries; :func:`launch` calls
+one on the current stream and adds 1 to ``LAUNCHES[name]``, the one count of
+the kernels' launches, and to the count ``launches`` of the innermost
+recording span (:mod:`..util.spans`).
 """
+import collections
 import ctypes
 import hashlib
 import os
@@ -16,11 +23,19 @@ import subprocess
 import time
 from dataclasses import dataclass
 
-__all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'KernelLibrary', 'build_library']
+import torch
+
+from ..util.spans import count
+
+__all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'KernelLibrary', 'build_library', 'load', 'launch',
+           'LAUNCHES']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
+# launches of each C entry (``'cdt_nms_resolve'``, ``'cdt_head_conv'``, ...)
+# since the process started; callers read differences
+LAUNCHES = collections.Counter()
 # -fmad=false: no mul+add contraction, so the kernels round like the plain
 # PyTorch versions they are held against bit for bit.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -81,3 +96,31 @@ def build_library(source: str, defines: tuple = (), libraries: tuple = ()) -> Ke
     with open(log_path) as f:
         log = f.read()
     return KernelLibrary(ctypes.CDLL(out), out, seconds, log)
+
+
+def load(source: str, functions: dict, defines: tuple = (), libraries: tuple = ()) -> KernelLibrary:
+    """:func:`build_library` of ``csrc/<source>``, with each C entry of
+    ``functions`` (name: argument types, the stream last) declared to return
+    an int, and ``cdt_cuda_error_string``."""
+    built = build_library(source, defines, libraries)
+    for name, argtypes in functions.items():
+        fn = getattr(built.lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    built.lib.cdt_cuda_error_string.argtypes = [ctypes.c_int]
+    built.lib.cdt_cuda_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def launch(built: KernelLibrary, name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` with ``args`` and the current stream of
+    ``device``, and count it; raise where it returns an error."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return launch(built, name, device, *args)
+    # the raw stream handle: torch.cuda.current_stream builds a Stream object,
+    # several microseconds a launch on the main path
+    err = getattr(built.lib, name)(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err:
+        raise RuntimeError(f'{name} launch failed: {built.lib.cdt_cuda_error_string(err).decode()}')
+    LAUNCHES[name] += 1
+    count('launches')

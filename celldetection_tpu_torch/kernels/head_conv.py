@@ -3,12 +3,12 @@
 A stride-1, zero-padded ("same") 2-D convolution of channels-last bf16 input
 as an implicit GEMM on the tensor cores (``wgmma``, fed by TMA); the source
 explains its design and its bound on this card. It replaces no TPU kernel:
-the JAX package leaves this convolution to XLA. ``models/commons.py:
-head_conv`` decides when the heads take it.
+the JAX package leaves this convolution to XLA. :func:`takes` decides when
+the heads (``models/commons.py: head_conv``) take it.
 
 :func:`head_conv_kernel` runs :func:`head_conv_plain` for a CPU tensor and
 launches the kernel for a CUDA tensor; there is no fallback from one to the
-other. Its ``launches`` counts the kernel's launches.
+other. Each launch adds 1 to ``build.LAUNCHES['cdt_head_conv']``.
 """
 import ctypes
 import functools
@@ -16,7 +16,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .build import KernelLibrary, build_library
+from .build import KernelLibrary, launch, load
 
 __all__ = ['head_conv_kernel', 'head_conv_plain', 'head_conv_library', 'takes']
 
@@ -31,12 +31,8 @@ _TILE = (8, 16)
 @functools.cache
 def head_conv_library() -> KernelLibrary:
     """Build (at first use) and load ``csrc/head_conv.cu``."""
-    built = build_library('head_conv.cu', libraries=('cuda',))
-    built.lib.cdt_head_conv.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    built.lib.cdt_head_conv.restype = ctypes.c_int
-    built.lib.cdt_cuda_error_string.argtypes = [ctypes.c_int]
-    built.lib.cdt_cuda_error_string.restype = ctypes.c_char_p
-    return built
+    return load('head_conv.cu', {'cdt_head_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+                libraries=('cuda',))
 
 
 def head_conv_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -63,11 +59,19 @@ def takes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor = None, stri
           padding=None) -> bool:
     """Whether the kernel computes ``F.conv2d(x, weight, bias, stride, padding)``.
 
-    That is a 2-D convolution of bf16 operands (and a bf16 bias or none, as
+    That is ``x`` on a CUDA card, no gradient wanted (grad mode off, or no
+    operand requires grad), and operands that :func:`_fits`.
+    """
+    return (x.is_cuda and _fits(x, weight, bias, stride, padding)
+            and not (torch.is_grad_enabled()
+                     and any(t is not None and t.requires_grad for t in (x, weight, bias))))
+
+
+def _fits(x, weight, bias, stride, padding) -> bool:
+    """A 2-D convolution of bf16 operands (and a bf16 bias or none, as
     ``F.conv2d`` asks), stride 1, "same" padding K // 2 of a square, odd K,
     input and output channels multiples of 64, and few enough tiles for the
-    grid's int. The device and autograd are the caller's to judge.
-    """
+    grid's int."""
     if x.dim() != 4 or weight.dim() != 4:
         return False
     bsz, cin, h, w = x.shape
@@ -98,7 +102,7 @@ def head_conv_kernel(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type != 'cuda' or weight.device != x.device or \
             (bias is not None and bias.device != x.device):
         raise ValueError('head_conv_kernel: x, weight and bias on one CUDA device')
-    if not takes(x, weight, bias, 1, weight.shape[-1] // 2):
+    if not _fits(x, weight, bias, 1, weight.shape[-1] // 2):
         raise ValueError(f'head_conv_kernel: input {tuple(x.shape)} {x.dtype} and weight '
                          f'{tuple(weight.shape)} {weight.dtype}: bf16 operands, Cin and Cout '
                          f'multiples of 64, one odd K')
@@ -115,16 +119,6 @@ def head_conv_kernel(x: torch.Tensor, weight: torch.Tensor,
     b = (torch.zeros(cout, dtype=torch.float32, device=x.device) if bias is None
          else bias.to(torch.float32, copy=True))
     out = torch.empty(bsz, h, w, cout, dtype=torch.bfloat16, device=x.device)
-    built = head_conv_library()
-    with torch.cuda.device(x.device):
-        err = built.lib.cdt_head_conv(xs.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), bsz, h, w, cin, cout, k,
-                                      torch._C._cuda_getCurrentRawStream(x.device.index))
-    if err:
-        raise RuntimeError('cdt_head_conv launch failed: '
-                           f'{built.lib.cdt_cuda_error_string(err).decode()}')
-    head_conv_kernel.launches += 1
+    launch(head_conv_library(), 'cdt_head_conv', x.device, xs.data_ptr(), wt.data_ptr(),
+           b.data_ptr(), out.data_ptr(), bsz, h, w, cin, cout, k)
     return out.permute(0, 3, 1, 2)
-
-
-head_conv_kernel.launches = 0  # kernel launches since the last reset (set to 0 to reset)

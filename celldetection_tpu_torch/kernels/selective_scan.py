@@ -6,11 +6,13 @@ replaces no TPU kernel: the JAX package computes the scan with
 ``jax.lax.associative_scan``. The exponentials and then the bytes of u, Δ, B,
 C and y bound it; the source says how its design (chunks of tokens scanned
 twice around a short pass that carries the states across them) answers.
-``models/mamba.py: selective_scan`` decides when the model takes it.
+:func:`takes` decides when the model (``models/mamba.py: selective_scan``)
+takes it.
 
 :func:`selective_scan_kernel` launches the kernel where :func:`takes` holds
-and raises otherwise; there is no fallback. Its ``launches`` counts the calls
-that launched it (three launches a call, one where the tokens fit one chunk).
+and raises otherwise; there is no fallback. Each call that launches adds 1 to
+``build.LAUNCHES['cdt_selective_scan']`` (three kernels a call, one where the
+tokens fit one chunk).
 :func:`selective_scan_plain` repeats the kernel's chunked arithmetic in plain
 PyTorch, on any device.
 """
@@ -20,7 +22,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .build import KernelLibrary, build_library
+from .build import KernelLibrary, launch, load
 
 __all__ = ['selective_scan_kernel', 'selective_scan_plain', 'selective_scan_library', 'takes',
            'chunk_tokens', 'exp2_plain', 'STATES', 'EXP2_POLY']
@@ -42,13 +44,8 @@ EXP2_POLY = (1.5337577497120947e-4, 1.3399859890341759e-3, 9.618519805371761e-3,
 @functools.cache
 def selective_scan_library() -> KernelLibrary:
     """Build (at first use) and load ``csrc/selective_scan.cu``."""
-    built = build_library('selective_scan.cu')
-    built.lib.cdt_selective_scan.argtypes = [_P] * 9 + [ctypes.POINTER(ctypes.c_longlong)] + \
-        [_I] * 5 + [_P]
-    built.lib.cdt_selective_scan.restype = ctypes.c_int
-    built.lib.cdt_cuda_error_string.argtypes = [ctypes.c_int]
-    built.lib.cdt_cuda_error_string.restype = ctypes.c_char_p
-    return built
+    return load('selective_scan.cu', {
+        'cdt_selective_scan': [_P] * 9 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 5 + [_P]})
 
 
 def chunk_tokens(batch: int, tokens: int, d_inner: int) -> int:
@@ -175,17 +172,8 @@ def selective_scan_kernel(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     sumdt = torch.empty(batch, links, d_inner, dtype=torch.float32, device=u.device)
     strides = (ctypes.c_longlong * 15)(*u.stride(), *delta.stride(), *B.stride(), *C.stride(),
                                        *A.stride(), *D.stride())
-    built = selective_scan_library()
-    with torch.cuda.device(u.device):
-        err = built.lib.cdt_selective_scan(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), carry.data_ptr(), sumdt.data_ptr(), y.data_ptr(), strides, batch,
-            tokens, d_inner, n, chunk, torch._C._cuda_getCurrentRawStream(u.device.index))
-    if err:
-        raise RuntimeError('cdt_selective_scan launch failed: '
-                           f'{built.lib.cdt_cuda_error_string(err).decode()}')
-    selective_scan_kernel.launches += 1
+    launch(selective_scan_library(), 'cdt_selective_scan', u.device, u.data_ptr(),
+           delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+           carry.data_ptr(), sumdt.data_ptr(), y.data_ptr(), strides, batch, tokens, d_inner, n,
+           chunk)
     return y
-
-
-selective_scan_kernel.launches = 0  # calls that launched the kernel since the last reset

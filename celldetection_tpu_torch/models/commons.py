@@ -595,26 +595,19 @@ def head_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     """A CPN head's first K x K convolution (2-D or 3-D, the rank of ``x``).
 
     It takes the hand-written kernel (:func:`..kernels.head_conv.head_conv_kernel`)
-    where the input shows it can: on a CUDA card, with no gradient to keep,
-    and of the shapes and dtypes the kernel takes (:func:`..kernels.head_conv.takes`:
-    bf16, 2-D, stride 1, "same" padding of an odd K, channels multiples of 64).
-    Everything else (fp32 and TF32, the CPU, 3-D heads, training, other
-    strides) runs ``F.conv2d``/``F.conv3d`` as the module would;
-    ``head_conv.library`` counts those calls. The span ``cpn.head_conv``
-    counts ``kernel`` (1 or 0) and ``cout``.
+    where :func:`..kernels.head_conv.takes` holds: on a CUDA card, with no
+    gradient to keep, bf16, 2-D, stride 1, "same" padding of an odd K,
+    channels multiples of 64. Everything else (fp32 and TF32, the CPU, 3-D
+    heads, training, other strides) runs ``F.conv2d``/``F.conv3d`` as the
+    module would. The span ``cpn.head_conv`` counts ``kernel`` (1 or 0) and
+    ``cout``, and the kernel's ``launches``.
     """
-    kernel = (x.is_cuda and head_conv_takes(x, weight, bias, stride, padding)
-              and not (torch.is_grad_enabled()
-                       and any(t is not None and t.requires_grad for t in (x, weight, bias))))
+    kernel = head_conv_takes(x, weight, bias, stride, padding)
     with span('cpn.head_conv', kernel=int(kernel), cout=weight.shape[0]):
         if kernel:
             return head_conv_kernel(x, weight, bias)
-        head_conv.library += 1
         conv = F.conv2d if x.dim() == 4 else F.conv3d
         return conv(x, weight, bias, stride=stride, padding=padding)
-
-
-head_conv.library = 0  # calls left to the library (F.conv2d/F.conv3d) since the last reset
 
 
 def fused_head_conv(x: torch.Tensor, convs: Sequence[nn.Module], stride: int,

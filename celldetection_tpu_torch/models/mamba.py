@@ -26,8 +26,8 @@ Spans (:mod:`..util.spans`): ``mamba.layer`` over ``MambaLayer.forward``
 (counts ``batch``, ``tokens``, ``d_model``, ``d_inner``, ``d_state``,
 ``dt_rank``) holds ``mamba.scan`` over the call of :func:`selective_scan`
 (``batch``, ``tokens``, ``d_inner``, ``d_state``, ``elem_bytes`` of ``u``;
-``kernel`` 1 where the call ran on the fused kernel, left out on the torch
-path).
+``kernel`` 1 and ``launches`` 1 where the call ran on the fused kernel, both
+left out on the torch path).
 """
 import math
 

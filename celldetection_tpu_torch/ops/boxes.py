@@ -1,19 +1,16 @@
 """Box math and exact greedy NMS (plain PyTorch).
 
 Counterpart of ``celldetection_tpu/ops/boxes.py``: ``box_area`` (79),
-``box_iou`` (83-92), ``_suppression_matrix`` (95-109),
-``_pairwise_inter_union``, ``pairwise_box_iou`` and
+``box_iou`` (83-92), ``_pairwise_inter_union``, ``pairwise_box_iou`` and
 ``pairwise_generalized_box_iou`` (112-137), ``remove_small_boxes_mask``
-(140-144), ``nms_padded`` (147-191),
-``_nms_sweep`` (216-250), ``nms_chunked`` (253-347), ``nms_indices``
-(350-362), ``get_iou_voting`` and ``filter_by_box_voting`` (365-387), and
-the reference's conveniences ``nms`` (30) and ``batched_box_nmsi`` (46)
-over ``nms_indices`` and ``nms_chunked``.
-``_nms_sweep`` is the plain version of the whole sweep that the hand-written
-CUDA kernels of :mod:`..kernels.nms` do, and ``nms_padded`` on CPU tensors is
-the oracle they are held against. ``_suppression_counts``,
-``_suppression_pairs`` and ``_resolve_blocks`` are the plain versions of the
-kernels one by one, with the same contracts.
+(140-144), ``nms_padded`` (147-191), ``nms_chunked`` (253-347),
+``nms_indices`` (350-362), ``get_iou_voting`` and ``filter_by_box_voting``
+(365-387), and the reference's conveniences ``nms`` (30) and
+``batched_box_nmsi`` (46) over ``nms_indices`` and ``nms_chunked``.
+``_suppression_matrix`` (95-109) and ``_nms_sweep`` (216-250) live in
+:mod:`..kernels.nms`, beside the hand-written CUDA kernels whose plain
+versions they are: ``nms_padded`` on CPU tensors runs ``_nms_sweep``, the
+oracle the kernels are held against.
 
 Unlike the JAX package ``nms_padded`` has no size gate: on a CUDA tensor the
 kernels run for every N up to ``kernels.nms.MAX_BOXES`` per image; on a CPU
@@ -23,6 +20,7 @@ package takes on a TPU, on either device.
 
 import torch
 
+from ..kernels import LAUNCHES, nms as kernel_nms
 from ..util.spans import span
 
 __all__ = ['box_area', 'box_iou', 'pairwise_box_iou', 'pairwise_generalized_box_iou',
@@ -91,205 +89,6 @@ def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tenso
     return (ws >= min_size) & (hs >= min_size)
 
 
-def _suppression_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor, thresh: float) -> torch.Tensor:
-    """``IoU > thresh`` as ``inter > thresh * union``, ``[..., n, m]`` bool.
-
-    The multiply form with ``union = (area1 + area2) - inter``, in that order,
-    is the one the JAX sweep, the Pallas kernel and the CUDA kernel all use,
-    so all of them round identically on knife-edge IoUs.
-    """
-    area1 = box_area(boxes1)
-    area2 = box_area(boxes2)
-    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
-    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
-    wh = (rb - lt).clamp(min=0)
-    inter = wh[..., 0] * wh[..., 1]
-    union = (area1[..., :, None] + area2[..., None, :]) - inter
-    return torch.where(union > 0, inter, 0.) > thresh * union
-
-
-def _nms_sweep(b: torch.Tensor, v: torch.Tensor, iou_threshold: float,
-               tile: int = 128) -> torch.Tensor:
-    """Blocked greedy suppression sweep over score-descending boxes.
-
-    Args:
-        b: ``[B, M, 4]`` boxes, each row sorted by descending score.
-        v: ``[B, M]`` bool validity.
-
-    Returns:
-        Keep mask ``[B, M]`` in the given (sorted) order.
-    """
-    bsz, m = v.shape
-    pad = (-m) % tile
-    if pad:
-        b = torch.cat([b, b.new_zeros(bsz, pad, 4)], 1)
-        v = torch.cat([v, v.new_zeros(bsz, pad)], 1)
-    keep = v.clone()
-    later_than = torch.ones(tile, tile, dtype=torch.bool, device=b.device).triu(1)
-    for start in range(0, m + pad, tile):
-        stop = start + tile
-        rows = b[:, start:stop]
-        k = keep[:, start:stop]
-        sup_rr = _suppression_matrix(rows, rows, iou_threshold) & later_than
-        for j in range(tile):  # sequential greedy inside the tile
-            k = k & ~(sup_rr[:, j] & k[:, j:j + 1])
-        keep[:, start:stop] = k
-        if stop < m + pad:  # suppress strictly later boxes against kept rows
-            sup = _suppression_matrix(rows, b[:, stop:], iou_threshold) & k[:, :, None]
-            keep[:, stop:] &= ~sup.any(1)
-    return keep[:, :m]
-
-
-# The sweep of the CUDA kernels in two halves, in plain PyTorch: the
-# suppression bits (csrc/nms_bits.cu) and the resolve (csrc/nms_resolve.cu).
-# Boxes go in blocks of BLOCK; word (i, c) has bit l set iff box 64c + l comes
-# after row i and both are valid and i suppresses it. torch has no uint64
-# bitwise operations, so words are int64 (bit 63 is the sign bit). A pair
-# is one row of an int64 [P, 2] tensor: (bits, row | word << 32), where row
-# is b * M + i; it has the layout of the kernels' 16-byte Pair. Pairs and
-# their offsets go row by row in block-major order: q = (r * B + b) * 64 + l
-# for row l of block r of image b, so a band of row blocks is one range.
-BLOCK = 64
-_CHUNK = 2 ** 22   # pair tests per step of the plain bits, bounding its temporaries
-
-
-def _unpack_words(words: torch.Tensor) -> torch.Tensor:
-    """``[...]`` int64 words to ``[..., 64]`` bool, bit l at position l."""
-    return (words[..., None] >> torch.arange(BLOCK, device=words.device)) & 1 == 1
-
-
-def _pack_words(bits: torch.Tensor) -> torch.Tensor:
-    """``[..., 64 * W]`` bool to ``[..., W]`` int64 words (a sum of distinct powers is their OR)."""
-    b = bits.unflatten(-1, (-1, BLOCK)).long()
-    return (b << torch.arange(BLOCK, device=bits.device)).sum(-1)
-
-
-def _later_words(b: torch.Tensor, v: torch.Tensor, thresh: float, r0: int, r1: int):
-    """The words of rows in blocks ``[r0, r1)`` against every block from their own on.
-
-    Yields ``(i, c, words)`` per step: row indices ``i [R]``, column block
-    indices ``c [W]`` and ``words [B, R, W]`` int64, masked as the kernels
-    mask them. Steps are cut so that no temporary exceeds ``_CHUNK`` tests
-    per image pair (never ``[M, M]``).
-    """
-    bsz, m = v.shape
-    nb = -(-m // BLOCK)
-    pad = nb * BLOCK - m
-    bp = torch.cat([b, b.new_zeros(bsz, pad, 4)], 1)
-    vp = torch.cat([v, v.new_zeros(bsz, pad)], 1)
-    rows = min(max(BLOCK, _CHUNK // (bsz * 2048) // BLOCK * BLOCK), (r1 - r0) * BLOCK)
-    for i0 in range(r0 * BLOCK, min(r1 * BLOCK, m), rows):
-        i = torch.arange(i0, min(i0 + rows, r1 * BLOCK, m), device=b.device)
-        for j0 in range(i0 // BLOCK * BLOCK, nb * BLOCK, 2048):
-            j = torch.arange(j0, min(j0 + 2048, nb * BLOCK), device=b.device)
-            sup = _suppression_matrix(bp[:, i], bp[:, j], thresh)
-            sup &= vp[:, i, None] & vp[:, None, j] & (j[None, :] > i[:, None])
-            yield i, j[::BLOCK] // BLOCK, _pack_words(sup)
-
-
-def _flag_bits(flags: torch.Tensor) -> torch.Tensor:
-    """``[..., nb]`` bool to ``[..., ceil(nb / 32)]`` int32 words, bit c % 32 of word c / 32."""
-    f = torch.nn.functional.pad(flags, (0, (-flags.shape[-1]) % 32)).unflatten(-1, (-1, 32))
-    w = (f.long() << torch.arange(32, device=flags.device)).sum(-1)
-    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)   # bit 31 is the sign bit
-
-
-def _suppression_counts(b: torch.Tensor, v: torch.Tensor, thresh: float, large: bool = False):
-    """Plain version of ``csrc/nms_bits.cu``'s count kernel.
-
-    Args:
-        large: the flags as bits, as the kernel writes them for large images.
-
-    Returns:
-        ``(start, diag, flags, nxt)``: ``start [nb * B * 64 + 1]`` int64 holds
-        0 and then the number of non-zero words of each row (block-major) in
-        later blocks; ``diag [B, nb * 64]`` int64 each box's column word in its
-        own block (bit l: box l of the block comes before it and suppresses it;
-        its own bit: it is valid; 0 past M); ``nxt [B, nb * 64]`` int64 each
-        row's word of the next block (0 in the last block and past M);
-        ``flags [B * nb * nb]`` uint8 is 1 where row block r has a non-zero
-        word in column block c > r (large: bit c % 32 of int32 word
-        ``(b * nb + r) * ceil(nb / 32) + c / 32``).
-    """
-    bsz, m = v.shape
-    nb = -(-m // BLOCK)
-    counts = torch.zeros(bsz, nb * BLOCK, dtype=torch.int64, device=b.device)
-    flags = torch.zeros(bsz, nb, nb, dtype=torch.bool, device=b.device)
-    nxt = torch.zeros(bsz, nb * BLOCK, dtype=torch.int64, device=b.device)
-    for i, c, words in _later_words(b, v, thresh, 0, nb):
-        nxt[:, i] += (words * (c[None, :] == (i // BLOCK + 1)[:, None])).sum(-1)
-        nz = (words != 0) & (c[None, :] > (i // BLOCK)[:, None])     # [B, R, W]
-        counts[:, i] += nz.sum(-1)
-        r0 = int(i[0]) // BLOCK
-        nz = torch.nn.functional.pad(nz, (0, 0, 0, (-len(i)) % BLOCK))
-        flags[:, r0:r0 + nz.shape[1] // BLOCK, c] |= nz.unflatten(1, (-1, BLOCK)).any(2)
-    start = torch.zeros(nb * bsz * BLOCK + 1, dtype=torch.int64, device=b.device)
-    start[1:] = counts.view(bsz, nb, BLOCK).transpose(0, 1).flatten()
-    pad = nb * BLOCK - m
-    bp = torch.cat([b, b.new_zeros(bsz, pad, 4)], 1).unflatten(1, (nb, BLOCK))
-    vp = torch.cat([v, v.new_zeros(bsz, pad)], 1).unflatten(1, (nb, BLOCK))
-    sup = _suppression_matrix(bp, bp, thresh) & vp[..., :, None] & vp[..., None, :]
-    sup &= torch.ones(BLOCK, BLOCK, dtype=torch.bool, device=b.device).triu(1)
-    sup |= torch.eye(BLOCK, dtype=torch.bool, device=b.device) & vp[..., :, None]  # own bit: valid
-    diag = _pack_words(sup.transpose(-1, -2)).flatten(1)            # [B, nb * 64]
-    flags = _flag_bits(flags) if large else flags.to(torch.uint8)
-    return start, diag, flags.flatten(), nxt
-
-
-def _suppression_pairs(b: torch.Tensor, v: torch.Tensor, thresh: float, r0: int, r1: int):
-    """Plain version of ``csrc/nms_bits.cu``'s fill kernel, for row blocks ``[r0, r1)``.
-
-    Returns:
-        ``[P, 2]`` int64 pairs ``(bits, row | word << 32)`` of the rows' non-zero
-        words in later blocks, ordered by block-major row and word.
-    """
-    bsz, m = v.shape
-    found = []
-    for i, c, words in _later_words(b, v, thresh, r0, r1):
-        words = words * (c[None, :] > (i // BLOCK)[:, None])
-        bi, ri, wi = words.nonzero(as_tuple=True)
-        found.append(torch.stack([words[bi, ri, wi], (bi * m + i[ri]) | (c[wi] << 32)], 1))
-    pairs = torch.cat(found) if found else b.new_zeros(0, 2, dtype=torch.int64)
-    row = pairs[:, 1] & 0xffffffff
-    q = ((row % m) // BLOCK * bsz + row // m) * BLOCK + row % m % BLOCK
-    return pairs[torch.argsort((q << 32) | (pairs[:, 1] >> 32))]
-
-
-def _resolve_blocks(v: torch.Tensor, diag: torch.Tensor, pairs: torch.Tensor,
-                    removed: torch.Tensor, keep: torch.Tensor, r0: int, r1: int) -> None:
-    """Plain version of ``csrc/nms_resolve.cu``: the greedy over row blocks ``[r0, r1)``.
-
-    Updates in place ``keep [B, M]`` bool (the band's rows) and ``removed
-    [B, nb]`` int64 (bit l of word c: box 64c + l is suppressed by a kept box
-    of an earlier block), which is read only where ``r0 > 0`` and may be
-    ``None`` where this band is the only one. ``pairs`` are those of the
-    band's rows, in any order; pairs with no bits set are ignored. Validity
-    comes from each box's own bit in ``diag``.
-    """
-    bsz, m = v.shape
-    nb = -(-m // BLOCK)
-    rem = torch.zeros(bsz, nb * BLOCK, dtype=torch.bool, device=v.device)
-    if r0:
-        rem = _unpack_words(removed).flatten(1)                     # [B, nb * 64]
-    row = pairs[:, 1] & 0xffffffff
-    img, i = row // m, row % m
-    cols = (pairs[:, 1] >> 32)[:, None] * BLOCK + torch.arange(BLOCK, device=v.device)
-    hit = _unpack_words(pairs[:, 0])                                # [P, 64]
-    for r in range(r0, r1):
-        s, e = r * BLOCK, min(r * BLOCK + BLOCK, m)
-        d = _unpack_words(diag[:, s:e]).transpose(1, 2)             # [B, 64 rows, L columns]
-        k = d.diagonal(0, 1, 2)[:, :e - s] & ~rem[:, s:e]           # own bits: valid
-        d &= ~torch.eye(BLOCK, dtype=torch.bool, device=v.device)[:, :e - s]
-        for j in range(e - s):          # sequential greedy inside the block
-            k = k & ~(d[:, j] & k[:, j:j + 1])
-        keep[:, s:e] = k
-        mine = (i // BLOCK == r) & k[img, (i - s).clamp(0, e - s - 1)]
-        sel = hit[mine]
-        rem[img[mine, None].expand_as(sel)[sel], cols[mine][sel]] = True
-    if removed is not None:
-        removed.copy_(_pack_words(rem))
-
-
 def sort_by_score(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor):
     """The greedy visit order of ``[B, N]`` boxes and the boxes in that order.
 
@@ -319,21 +118,20 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         scores: ``[N]`` or ``[B, N]``.
         valid: ``[N]`` or ``[B, N]`` bool; padded entries False.
         sweep: The sweep over score-sorted boxes: ``kernels.nms.nms_sweep``
-            (the kernels on a CUDA tensor) by default; ``_nms_sweep`` is its
-            plain version on any device, which checks on the card pass.
+            (the kernels on a CUDA tensor), looked up at each call, by
+            default; ``kernels.nms._nms_sweep`` is its plain version on any
+            device, which checks on the card pass.
 
     Returns:
         Bool keep mask of ``valid``'s shape in the original box order. On a
         CUDA tensor all images go through one call of the CUDA sweep.
     """
-    from ..kernels.nms import nms_sweep
-
     if boxes.dim() == 2:
         return nms_padded(boxes[None], scores[None], valid[None], iou_threshold, sweep)[0]
     if valid.shape[1] == 0:
         return valid.clone()
     order, b, v = sort_by_score(boxes, scores, valid)
-    keep_sorted = (sweep or nms_sweep)(b, v, iou_threshold)
+    keep_sorted = (sweep or kernel_nms.nms_sweep)(b, v, iou_threshold)
     return torch.zeros_like(valid).scatter_(1, order, keep_sorted) & valid
 
 
@@ -341,21 +139,21 @@ def _traced(trace, name: str, shape, device, fn):
     """``fn()``; where ``trace`` is a list, also the span ``nms.<name>`` (count
     ``m``; its kernels' ``nms.*`` spans count their launches), ended by a
     device synchronisation, and an entry in ``trace``: the pass's name,
-    ``B x M``, host ms (the span's) and kernel launches."""
+    ``B x M``, host ms (the span's) and kernel launches (those added to
+    ``kernels.LAUNCHES`` in the pass)."""
     if trace is None:
         return fn()
-    from ..kernels import KERNELS
 
     def sync():
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
 
     sync()
-    before = sum(k.launches for k in KERNELS)
+    before = sum(LAUNCHES.values())
     with span(f'nms.{name}', m=int(shape[1])) as sp:
         out = fn()
         sync()
-        launches = sum(k.launches for k in KERNELS) - before
+        launches = sum(LAUNCHES.values()) - before
     trace.append(dict(name=name, batch=int(shape[0]), m=int(shape[1]), ms=sp.ms,
                       launches=launches))
     return out
@@ -403,9 +201,7 @@ def nms_chunked(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         keep = _traced(trace, 'exact', (1, n), boxes.device,
                        lambda: nms_padded(boxes, scores, valid, iou_threshold, sweep))
         return (keep, False) if return_overflow else keep
-    if sweep is None:
-        from ..kernels.nms import nms_sweep as sweep
-
+    sweep = sweep or kernel_nms.nms_sweep
     chunk += (-chunk) % tile
     cap = min(survivors_cap or 4 * chunk, n)
     cap += (-cap) % tile

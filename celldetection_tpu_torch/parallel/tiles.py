@@ -31,7 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.boxes import _suppression_matrix, nms_chunked, nms_padded, remove_small_boxes_mask
+from ..kernels.nms import _suppression_matrix
+from ..ops.boxes import nms_chunked, nms_padded, remove_small_boxes_mask
 from ..util.spans import count, span
 from ..util.tiling import get_tiling_slices
 from .mesh import host_group, mesh_group

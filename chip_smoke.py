@@ -190,19 +190,18 @@ import numpy as np
 import torch
 
 import celldetection_tpu_torch as ct
-from celldetection_tpu_torch import kernels, models
+from celldetection_tpu_torch import models
+from celldetection_tpu_torch.kernels import LAUNCHES, nms_bits_count, nms_bits_fill, nms_resolve
 from celldetection_tpu_torch.kernels import nms as knms
-from celldetection_tpu_torch.kernels import nms_bits_count, nms_bits_fill, nms_resolve
 from celldetection_tpu_torch.kernels.head_conv import (head_conv_kernel, head_conv_library,
                                                        head_conv_plain)
-from celldetection_tpu_torch.kernels.selective_scan import (selective_scan_kernel,
-                                                             selective_scan_library)
-from celldetection_tpu_torch.kernels.nms import (band_plan, bits_library, large_layout,
-                                                 nms_sweep, resolve_library, slots_layout)
-from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _resolve_blocks,
-                                               _suppression_counts, _suppression_matrix,
-                                               _suppression_pairs, box_iou, nms_chunked,
-                                               nms_padded, sort_by_score)
+from celldetection_tpu_torch.kernels.selective_scan import selective_scan_library
+from celldetection_tpu_torch.kernels.nms import (BLOCK, _nms_sweep, _resolve_blocks,
+                                                 _suppression_counts, _suppression_matrix,
+                                                 _suppression_pairs, band_plan, bits_library,
+                                                 large_layout, nms_sweep, resolve_library,
+                                                 slots_layout)
+from celldetection_tpu_torch.ops.boxes import box_iou, nms_chunked, nms_padded, sort_by_score
 from celldetection_tpu_torch.data import (collate_cpn_targets, conf2augmentation, contours2labels,
                                           cpn_targets_single, random_geometric_objects,
                                           random_geometric_shapes)
@@ -448,6 +447,11 @@ LAUNCH_NAMES = {'cdt_nms_bits_count': 'nms_bits_count', 'cdt_nms_bits_fill': 'nm
                 'cdt_nms_resolve': 'nms_resolve'}
 
 
+def nms_launches():
+    """Each NMS kernel's launches so far (``kernels.LAUNCHES``), by its wrapper's name."""
+    return {short: LAUNCHES[name] for name, short in LAUNCH_NAMES.items()}
+
+
 HOLD_CYCLES = 200_000       # a device-side wait of about 0.1 ms ahead of each timed launch
 EVENTS = 'CUDA events around each launch'
 
@@ -455,14 +459,14 @@ EVENTS = 'CUDA events around each launch'
 def event_ms(fn, calls):
     """Device time (ms) per launch of each NMS kernel over ``calls`` calls of
     ``fn``, from CUDA events recorded just before and after each launch on
-    its stream (``kernels.nms._launch`` wrapped), with its launches per call
+    its stream (``kernels.nms.launch`` wrapped), with its launches per call
     (``torch.profiler`` misses kernels late in a long process). Ahead of each launch the
     stream waits on the device (``torch.cuda._sleep``) while the host queues
     the event, the kernel and the second event, so the span holds the
     kernel and the events' own few microseconds, not the host's launch; the
     median span is taken, as a host stalled past the wait stretches one.
     It fails when a kernel was not launched at least once a call."""
-    original = knms._launch
+    original = knms.launch
     spans = {name: [] for name in LAUNCH_NAMES.values()}
 
     def timed(built, name, device, *args):
@@ -475,13 +479,13 @@ def event_ms(fn, calls):
 
     fn()
     torch.cuda.synchronize()
-    knms._launch = timed
+    knms.launch = timed
     try:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     finally:
-        knms._launch = original
+        knms.launch = original
     check(all(len(ev) >= calls for ev in spans.values()),
           f'event timing: launches per call {({k: len(ev) / calls for k, ev in spans.items()})}')
     out = {name: (float(np.median([a.elapsed_time(b) for a, b in ev])), round(len(ev) / calls))
@@ -513,14 +517,14 @@ def time_sweep(label, b, v, keep, thresh, card, floor):
         nms_sweep(b, v, thresh)
     host_ms = (time.perf_counter() - t0) / iters * 1e3
     dev = event_ms(lambda: nms_sweep(b, v, thresh), min(iters, 10))
-    before = [k.launches for k in kernels.KERNELS]
+    before = sum(nms_launches().values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     nms_sweep(b, v, thresh)
     torch.cuda.synchronize()
     scratch = torch.cuda.max_memory_allocated() - held
-    per_call = sum(k.launches for k in kernels.KERNELS) - sum(before)
+    per_call = sum(nms_launches().values()) - before
     bound_ms, bound_by, tests = nms_bound(b, v, keep, thresh)
     kernels_ms = ', '.join(f'{name} {dev[name][0]:.4f} ms x{dev[name][1]}' for name in SOURCES)
     print(f'  [{card}] nms_sweep {label}: {ms:.4f} ms per call (median of 3 windows of {iters} '
@@ -884,25 +888,32 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
             probs = probs * certain_half(m, x).view_as(probs)
         configs.append((name, m, x, threshold_above(probs, 3072)))
 
-    for k in kernels.KERNELS:          # the main path's run: counts from 0
-        k.launches = 0
-    head_conv_kernel.launches = commons.head_conv.library = 0
+    LAUNCHES.clear()                   # the main path's run: counts from 0
+    library_total = 0
     runs, head_inputs = [], {}
     for name, m, x, thresh in configs:
-        before = sum(k.launches for k in kernels.KERNELS)
-        heads = (head_conv_kernel.launches, commons.head_conv.library)
-        scans = selective_scan_kernel.launches
-        with HeadConvRecorder() as recorder:
-            pre = m.forward_padded(x, score_thresh=thresh, nms=False)
-            out = m.forward_padded(x, score_thresh=thresh)
-            res = m(x, score_thresh=thresh)           # the user API: ragged per-image results
-            torch.cuda.synchronize()
+        before = LAUNCHES.copy()
+        span_recorder.reset()
+        span_recorder.enable()         # the cpn.head_conv spans count the calls left to cuDNN
+        try:
+            with HeadConvRecorder() as recorder:
+                pre = m.forward_padded(x, score_thresh=thresh, nms=False)
+                out = m.forward_padded(x, score_thresh=thresh)
+                res = m(x, score_thresh=thresh)           # the user API: ragged per-image results
+                torch.cuda.synchronize()
+            heads = [r['counts']['kernel'] for r in span_recorder.collect()
+                     if r['name'] == 'cpn.head_conv']
+        finally:
+            span_recorder.disable()
+            span_recorder.reset()
+        launched = LAUNCHES - before
         runs.append((name, m, x, thresh, pre, out, res,
-                     sum(k.launches for k in kernels.KERNELS) - before))
+                     sum(launched[k] for k in LAUNCH_NAMES)))
         # every head of these models has channels that are multiples of 64:
         # in bf16 each head conv takes the kernel, in fp32 none does
-        kernel_calls = head_conv_kernel.launches - heads[0]
-        library_calls = commons.head_conv.library - heads[1]
+        kernel_calls = launched['cdt_head_conv']
+        library_calls = heads.count(0)
+        library_total += library_calls
         print(f'  {name}: head conv kernel launches {kernel_calls}, calls left to the library '
               f'{library_calls}', flush=True)
         if m.compute_dtype == torch.bfloat16:
@@ -913,19 +924,19 @@ def main_path(rng, card, errs, floor, title, build, tame=False,
             check(kernel_calls == 0 and library_calls > 0,
                   f'{name}: the fp32 heads launched the head conv kernel')
         # the Mamba scans of an fp32 model take the fused scan kernel, a bf16 one's the torch scan
-        scans = selective_scan_kernel.launches - scans
+        scans = launched['cdt_selective_scan']
         fused = m.compute_dtype != torch.bfloat16 and any(
             isinstance(mod, mamba.Mamba) for mod in m.modules())
         print(f'  {name}: selective scan kernel launches {scans}', flush=True)
         check(scans > 0 if fused else scans == 0,
               f'{name}: {scans} selective scan kernel launches, '
               f'expected {"some" if fused else "none"}')
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches = nms_launches()
     print(f'  kernel launches in the main path run: {launches}', flush=True)
     check(all(n > 0 for n in launches.values()), 'a kernel of the path was never launched')
 
     kernel_rec = {'head_conv': dict(
-        launches=head_conv_kernel.launches, library_calls=commons.head_conv.library,
+        launches=LAUNCHES['cdt_head_conv'], library_calls=library_total,
         shapes=[hold_head_conv(card, f'{key[0]} main path', *operands)
                 for key, operands in head_inputs.items()])}
     del head_inputs
@@ -1285,8 +1296,7 @@ def phase_gigapixel(card, floor):
           flush=True)
     check(all(0 < t < 1 for t in thresh.values()), f'thresholds out of range: {thresh}')
 
-    for k in kernels.KERNELS:          # the tiled path's run: counts from 0
-        k.launches = 0
+    LAUNCHES.clear()                   # the tiled path's run: counts from 0
     runs = {}
     for label, name, mosaic in (('8192^2 bf16 batch 4', 'bf16', mosaic8),
                                 ('8192^2 fp32 batch 1 (TF32 convolutions)', 'fp32', mosaic8),
@@ -1302,7 +1312,7 @@ def phase_gigapixel(card, floor):
             np.isfinite(res[k]).all() for k in ('contours', 'boxes', 'scores', 'fourier',
                                                 'locations')), f'{label}: bad results')
         runs[label] = res, stats
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches = nms_launches()
     print(f'  kernel launches in the tiled path run: {launches}', flush=True)
     check(all(n > 0 for n in launches.values()), 'a kernel of the tiled path was never launched')
     # the user's entry point: model(image) above max_imsize (2048) tiles itself
@@ -1542,13 +1552,12 @@ def phase_train_card_vs_cpu():
 
 
 def reset_launches():
-    for k in kernels.KERNELS:
-        k.launches = 0
+    LAUNCHES.clear()
 
 
 def read_launches():
     torch.cuda.synchronize()
-    return {k.__name__: k.launches for k in kernels.KERNELS}
+    return nms_launches()
 
 
 def phase_train(card, errs, floor):
@@ -1906,7 +1915,7 @@ def phase_zoo(rng, card, errs, floor):
                           lambda name=name, **kw: models.get_cpn(name)(3, **FLAGSHIP, **kw),
                           tame=True, **factors)
     phase_pretrained(rng)
-    launches = {k.__name__: 0 for k in kernels.KERNELS}
+    launches = dict.fromkeys(LAUNCH_NAMES.values(), 0)
     for name, runs in ZOO_PATH:
         got, _ = main_path(rng, card, errs, floor, f'phase 15: the zoo\'s main path, {name}',
                            lambda name=name, **kw: models.get_cpn(name)(3, **FLAGSHIP, **kw),
@@ -2840,7 +2849,7 @@ def phase_mamba(rng, card, errs, floor):
         A, Bm, Cm = -(np.abs(g.randn(D, 16)) + 0.1), g.randn(B, L, 16), g.randn(B, L, 16)
         args = [torch.from_numpy(a.astype(np.float32)).cuda()
                 for a in (u, delta, A, Bm, Cm, g.randn(D))]
-        before = selective_scan_kernel.launches
+        before = LAUNCHES['cdt_selective_scan']
         got = mamba.selective_scan(*args)
         torch.cuda.synchronize()
         want = float64_scan(*args)
@@ -2849,8 +2858,8 @@ def phase_mamba(rng, card, errs, floor):
         worst = max(worst, err)
         print(f'  B, L, D, N = {B}, {L}, {D}, 16: max |card - float64| / (1e-5 + 1e-4 |ref|) = '
               f'{err:.4f}; max |card - float64| / max |ref| = {rel:.3e}; kernel launches '
-              f'{selective_scan_kernel.launches - before}', flush=True)
-        check(selective_scan_kernel.launches == before + 1, 'selective_scan took the torch scan')
+              f'{LAUNCHES["cdt_selective_scan"] - before}', flush=True)
+        check(LAUNCHES['cdt_selective_scan'] == before + 1, 'selective_scan took the torch scan')
         check(err <= 1., f'selective_scan on the card differs from the sequential scan at '
               f'{B, L, D}')
         del args, got, want

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from celldetection_tpu_torch.kernels import LAUNCHES  # noqa: E402
 from celldetection_tpu_torch.kernels.head_conv import (head_conv_kernel,  # noqa: E402
                                                        head_conv_library, head_conv_plain)
 
@@ -156,7 +157,7 @@ def main():
                 result['timings'][name]['benchmark_ms'] = ms
         else:
             result['benchmark_error'] = child.stderr[-2000:]
-    result['launches'] = head_conv_kernel.launches
+    result['launches'] = LAUNCHES['cdt_head_conv']
     result['ok'] = all(r['ok'] for r in result['checks'].values())
     line = json.dumps(result)
     if args.out:

@@ -38,9 +38,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from celldetection_tpu_torch.kernels.nms import (_launch, _ptr, band_plan,  # noqa: E402
-                                                 large_layout, nms_bits_count, nms_bits_fill,
-                                                 nms_resolve, resolve_library, slots_layout)
+from celldetection_tpu_torch.kernels.build import launch  # noqa: E402
+from celldetection_tpu_torch.kernels.nms import (_ptr, band_plan, large_layout,  # noqa: E402
+                                                 nms_bits_count, nms_bits_fill, nms_resolve,
+                                                 resolve_library, slots_layout)
 from celldetection_tpu_torch.ops.boxes import sort_by_score  # noqa: E402
 
 SIZES = (64, 16384, 262144)
@@ -69,9 +70,9 @@ def smi(query):
 def phases(traced, v, diag, nxt, pairs, start, base, keep, r0, r1):
     """One launch of the instrumented resolve (the arguments of kernels.nms.nms_resolve):
     CTA 0's clock cycles by phase for warp 0 and the other warps, and its rounds."""
-    _launch(traced, 'cdt_nms_resolve', v.device, diag.data_ptr(), _ptr(nxt), pairs.data_ptr(),
-            _ptr(start), base, 0, keep.data_ptr(), v.shape[0], v.shape[1], r0, r1,
-            int(large_layout(v.shape[1])))
+    launch(traced, 'cdt_nms_resolve', v.device, diag.data_ptr(), _ptr(nxt), pairs.data_ptr(),
+           _ptr(start), base, 0, keep.data_ptr(), v.shape[0], v.shape[1], r0, r1,
+           int(large_layout(v.shape[1])))
     torch.cuda.synchronize()
     out = (ctypes.c_longlong * (2 * (len(PHASES) + 1)))()
     err = traced.lib.cdt_nms_resolve_phases(out)

@@ -36,6 +36,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+from celldetection_tpu_torch.kernels import LAUNCHES  # noqa: E402
 from celldetection_tpu_torch.kernels.selective_scan import (chunk_tokens,  # noqa: E402
                                                             selective_scan_kernel,
                                                             selective_scan_library,
@@ -124,7 +125,7 @@ def main():
     total = {k: sum(r[k] for r in rows) for k in ('kernel_ms', 'bound_ms', 'torch_ms', 'plain_ms')}
     result = dict(card=card[:1], torch=torch.__version__, build_s=built.build_seconds,
                   stages=rows, total=total, roofline=total['bound_ms'] / total['kernel_ms'],
-                  launches=selective_scan_kernel.launches, ok=all(r['ok'] for r in rows))
+                  launches=LAUNCHES['cdt_selective_scan'], ok=all(r['ok'] for r in rows))
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,4 +1,4 @@
-"""Port parity: the plain versions of the NMS kernels' two halves (``ops/boxes.py``).
+"""Port parity: the plain versions of the NMS kernels' two halves (``kernels/nms.py``).
 
 The suppression bits (``_suppression_counts``, ``_suppression_pairs``) are
 held against the JAX package's ``_suppression_matrix`` restricted to later,
@@ -16,11 +16,12 @@ import torch
 from celldetection_tpu.ops import batched_box_nms as jax_batched_box_nms
 from celldetection_tpu.ops.boxes import _suppression_matrix as jax_suppression_matrix
 from celldetection_tpu.ops.boxes import nms_padded as jax_nms_padded
-from celldetection_tpu_torch.kernels import KERNELS
-from celldetection_tpu_torch.kernels.nms import (band_plan, bits_sweep, large_layout, pair_bands,
+from celldetection_tpu_torch.kernels import LAUNCHES
+from celldetection_tpu_torch.kernels.nms import (BLOCK, _nms_sweep, _suppression_counts,
+                                                 _suppression_pairs, _unpack_words, band_plan,
+                                                 bits_sweep, large_layout, pair_bands,
                                                  slots_layout)
-from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _suppression_counts,
-                                               _suppression_pairs, _unpack_words, sort_by_score)
+from celldetection_tpu_torch.ops.boxes import sort_by_score
 from test_torch_port_nms import crowded_boxes, knife_edge_pairs
 
 
@@ -174,9 +175,9 @@ def test_plain_resolve_edge_cases_match_jax(case):
 
 
 def test_plain_kernels_count_no_launch():
-    before = [k.launches for k in KERNELS]
+    before = LAUNCHES.copy()
     sweep(crowded_boxes(2, (2, 300)), 0.5)
-    assert [k.launches for k in KERNELS] == before
+    assert LAUNCHES == before
 
 
 @pytest.mark.parametrize('shape', [(2, 1000), (1, 2500), (3, 64 * 33)])

@@ -1,7 +1,7 @@
 """Each NMS kernel against its plain version, on the card.
 
 The kernels are ``csrc/nms_bits.cu`` and ``csrc/nms_resolve.cu``, their plain
-versions in ``ops/boxes.py``. Every test here needs a CUDA card and skips
+versions in ``kernels/nms.py``; ``kernels.LAUNCHES`` counts the launches. Every test here needs a CUDA card and skips
 without one. The module imports neither JAX nor the JAX package, so on a
 machine with a card it runs without the repository's conftest:
 ``python -m pytest --noconftest tests/test_torch_nms_kernels.py -m cuda``.
@@ -10,14 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from celldetection_tpu_torch.kernels import KERNELS, nms_bits_count, nms_bits_fill, nms_resolve
-from celldetection_tpu_torch.kernels.nms import (band_plan, bits_sweep, large_layout, nms_sweep,
+from celldetection_tpu_torch.kernels import LAUNCHES, nms_bits_count, nms_bits_fill, nms_resolve
+from celldetection_tpu_torch.kernels.nms import (BLOCK, _nms_sweep, _suppression_counts,
+                                                 band_plan, bits_sweep, large_layout, nms_sweep,
                                                  slots_layout)
 from celldetection_tpu_torch.ops import nms_padded
-from celldetection_tpu_torch.ops.boxes import (BLOCK, _nms_sweep, _suppression_counts,
-                                               sort_by_score)
+from celldetection_tpu_torch.ops.boxes import sort_by_score
 
 pytestmark = pytest.mark.cuda
+
+NMS_LAUNCHES = ('cdt_nms_bits_count', 'cdt_nms_bits_fill', 'cdt_nms_resolve')
 
 
 def crowded_boxes(seed, shape, extent, invalid=0.05):
@@ -52,7 +54,7 @@ def test_each_nms_kernel_matches_plain_on_card(card, seed, shape, extent, thresh
     _, b, v = sort_by_score(boxes, scores, valid)
     bc, vc = b.cpu(), v.cpu()
     nb = -(-shape[1] // BLOCK)
-    before = [k.launches for k in KERNELS]
+    before = [LAUNCHES[name] for name in NMS_LAUNCHES]
 
     want = nms_bits_count(bc, vc, thresh)
     want_pairs = nms_bits_fill(bc, vc, thresh, 0, nb, None, None, 0, 0)
@@ -74,7 +76,7 @@ def test_each_nms_kernel_matches_plain_on_card(card, seed, shape, extent, thresh
         nms_resolve(v, diag, nxt, pairs, offsets, 0, removed, keep, 0, nb)
         nms_resolve(vc, want[1], None, found.cpu(), None, 0, want_removed, want_keep, 0, nb)
         assert torch.equal(keep.cpu(), want_keep) and torch.equal(removed.cpu(), want_removed)
-    assert [k.launches for k in KERNELS] == [n + len(layouts) for n in before]
+    assert [LAUNCHES[name] for name in NMS_LAUNCHES] == [n + len(layouts) for n in before]
 
     assert torch.equal(nms_sweep(b, v, thresh), _nms_sweep(b, v, thresh))
     cpu = nms_padded(*(torch.from_numpy(a) for a in arrays), thresh)
@@ -86,9 +88,9 @@ def test_banded_sweep_matches_plain_on_card(card):
     """Bands of a few row blocks each, the removed bits carried between them."""
     arrays = crowded_boxes(3, (2, 1000), 150.)
     _, b, v = sort_by_score(*(torch.from_numpy(a).to(card) for a in arrays))
-    before = nms_resolve.launches
+    before = LAUNCHES['cdt_nms_resolve']
     assert torch.equal(bits_sweep(b, v, 0.5, pair_budget=50), _nms_sweep(b, v, 0.5))
-    assert nms_resolve.launches - before > 5
+    assert LAUNCHES['cdt_nms_resolve'] - before > 5
 
 
 @pytest.mark.parametrize('seed, shape, extent', [(4, (2, 5000), 400.), (5, (1, 20000), 900.)])
@@ -104,10 +106,10 @@ def test_large_layout_matches_plain_on_card(card, seed, shape, extent):
     nb = -(-shape[1] // BLOCK)
     assert got[2].dtype == torch.int32 and got[2].numel() == shape[0] * nb * -(-nb // 32)
     want = _nms_sweep(b, v, 0.5)
-    before = nms_resolve.launches
+    before = LAUNCHES['cdt_nms_resolve']
     assert torch.equal(bits_sweep(b, v, 0.5, large=True), want)
     assert torch.equal(bits_sweep(b, v, 0.5, pair_budget=500, large=True), want)
-    assert nms_resolve.launches - before > 2
+    assert LAUNCHES['cdt_nms_resolve'] - before > 2
 
 
 def test_sweep_past_262144_boxes_matches_plain_on_card(card):

@@ -4,10 +4,11 @@
 (fp32 sums of the bf16 operands' exact products, the bias in fp32, one
 rounding to bf16); here it is held against ``F.conv2d`` in fp32 and against
 the implicit GEMM the kernel computes, written out tap by tap in float64 on
-the kernel's weight layout. The dispatch rule is held on stand-ins that carry
-only what the rule reads, since this machine has no card; the paths it leaves
-to the library are held bit for bit against ``F.conv2d``/``F.conv3d`` and
-the modules. The test marked ``cuda`` holds the kernel against its plain
+the kernel's weight layout. The dispatch rule (``takes``, which
+``head_conv`` alone asks) is held on stand-ins that carry only what the rule
+reads, since this machine has no card; the paths it leaves to the library
+are held bit for bit against ``F.conv2d``/``F.conv3d`` and the modules, and
+launch nothing (``kernels.LAUNCHES``). The test marked ``cuda`` holds the kernel against its plain
 version on the card and skips without one. The module imports neither JAX
 nor the JAX package: ``python -m pytest --noconftest
 tests/test_torch_port_head_conv.py -m cuda`` runs it on a machine with a card.
@@ -19,6 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from celldetection_tpu_torch.kernels import LAUNCHES
 from celldetection_tpu_torch.kernels import head_conv as kernel_module
 from celldetection_tpu_torch.kernels.head_conv import head_conv_kernel, head_conv_plain
 from celldetection_tpu_torch.models import commons
@@ -125,15 +127,18 @@ def routes(monkeypatch):
         conv2d = staticmethod(lambda *a, **kw: 'conv2d')
         conv3d = staticmethod(lambda *a, **kw: 'conv3d')
     monkeypatch.setattr(commons, 'F', Lib)
-    monkeypatch.setattr(head_conv, 'library', 0)
 
 
-def _call(cin=256, cout=768, k=7, stride=1, padding=None, dtype=torch.bfloat16, device='cuda',
+def _args(cin=256, cout=768, k=7, stride=1, padding=None, dtype=torch.bfloat16, device='cuda',
           wdtype=None, nd=2, x_grad=False, w_grad=False, bias=True):
     x = Like((4, cin) + (64,) * nd, dtype, device, x_grad)
     w = Like((cout, cin) + (k,) * nd, wdtype or dtype, device, w_grad)
     b = Like((cout,), wdtype or dtype, device) if bias else None
-    return head_conv(x, w, b, stride, k // 2 if padding is None else padding)
+    return x, w, b, stride, k // 2 if padding is None else padding
+
+
+def _call(**case):
+    return head_conv(*_args(**case))
 
 
 @pytest.mark.parametrize('case, route', [
@@ -164,22 +169,25 @@ def test_dispatch_rule(routes, case, route):
     case = dict(case)
     with torch.set_grad_enabled(not case.pop('no_grad', False)):
         assert _call(**case) == route
-    assert head_conv.library == (route != 'kernel')
+        # the route is the kernel's own rule, and nothing else
+        assert kernel_module.takes(*_args(**case)) == (route == 'kernel')
 
 
 def test_library_counter_counts_library_calls_only(routes):
-    for case in (dict(), dict(dtype=torch.float32), dict(device='cpu'), dict(nd=3), dict()):
-        _call(**case)
-    assert head_conv.library == 3
+    """The library routes launch nothing: ``LAUNCHES`` stays as it was."""
+    before = LAUNCHES.copy()
+    routes = [_call(**case) for case in (dict(dtype=torch.float32), dict(device='cpu'),
+                                         dict(nd=3))]
+    assert routes == ['conv2d', 'conv2d', 'conv3d'] and LAUNCHES == before
 
 
 def test_library_paths_are_conv_unchanged():
-    before = head_conv.library
+    before = LAUNCHES.copy()
     for dtype in (torch.float32, torch.bfloat16):
         x, wt, b = (t.to(dtype) for t in operands(5, 2, 64, 64, 7, 10, 13))
         assert torch.equal(head_conv(x, wt, b, 1, 3), F.conv2d(x, wt, b, padding=3))
         assert torch.equal(head_conv(x, wt, b, 2, 3), F.conv2d(x, wt, b, stride=2, padding=3))
-    assert head_conv.library == before + 4
+    assert LAUNCHES == before
     for nd in (2, 3):
         torch.manual_seed(nd)
         head = ReadOut(16, 6, kernel_size=7, nd=nd).eval()
@@ -221,10 +229,10 @@ def card():
 ])
 def test_kernel_matches_plain_on_card(card, batch, cin, cout, k, h, w):
     x, wt, b = (t.to(card) for t in operands(batch + cin + k, batch, cin, cout, k, h, w))
-    before = head_conv_kernel.launches
+    before = LAUNCHES['cdt_head_conv']
     got = head_conv_kernel(x, wt, b)
     torch.cuda.synchronize()
-    assert head_conv_kernel.launches == before + 1
+    assert LAUNCHES['cdt_head_conv'] == before + 1
     assert got.shape == (batch, cout, h, w) and got.dtype == torch.bfloat16
     want = head_conv_plain(x, wt, b)   # rounded too: the two may differ by one ulp
     assert within_rounding(got.cpu(), want.cpu().double().numpy(), cin * k * k, 2).all()
@@ -239,6 +247,6 @@ def test_kernel_matches_plain_on_card(card, batch, cin, cout, k, h, w):
 @pytest.mark.cuda
 def test_kernel_on_empty_input_launches_nothing(card):
     x, wt, b = (t.to(card) for t in operands(7, 2, 64, 128, 7, 0, 16))
-    before = head_conv_kernel.launches
+    before = LAUNCHES['cdt_head_conv']
     got = head_conv_kernel(x, wt, b)
-    assert got.shape == (2, 128, 0, 16) and head_conv_kernel.launches == before
+    assert got.shape == (2, 128, 0, 16) and LAUNCHES['cdt_head_conv'] == before

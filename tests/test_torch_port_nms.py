@@ -17,9 +17,10 @@ from celldetection_tpu.kernels.nms_pallas import nms_pallas
 from celldetection_tpu.ops import batched_box_nms as jax_batched_box_nms
 from celldetection_tpu.ops.boxes import _suppression_matrix as jax_suppression_matrix
 from celldetection_tpu.ops.boxes import nms_padded as jax_nms_padded
-from celldetection_tpu_torch.kernels import KERNELS, nms_sweep
+from celldetection_tpu_torch.kernels import LAUNCHES, nms_sweep
+from celldetection_tpu_torch.kernels.nms import _nms_sweep
 from celldetection_tpu_torch.ops import batched_box_nms, nms_padded
-from celldetection_tpu_torch.ops.boxes import _nms_sweep, sort_by_score
+from celldetection_tpu_torch.ops.boxes import sort_by_score
 from test_torch_port_cpn import one_torch_thread  # noqa: F401  (pytestmark)
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
@@ -132,9 +133,9 @@ def test_nms_sweep_wrapper_routes_by_device():
     non-CUDA devices raise rather than fall back."""
     boxes, _, valid = crowded_boxes(2, (2, 300))
     b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
-    before = [k.launches for k in KERNELS]
+    before = LAUNCHES.copy()
     assert torch.equal(nms_sweep(b, v, 0.5), _nms_sweep(b, v, 0.5))
-    assert [k.launches for k in KERNELS] == before
+    assert LAUNCHES == before
     with pytest.raises(ValueError, match='no kernel'):
         nms_sweep(b.to('meta'), v.to('meta'), 0.5)
 
@@ -147,9 +148,10 @@ def test_nms_kernel_matches_plain_on_card():
         arrays = crowded_boxes(seed, shape, extent=200. * (shape[1] // 2048 or 1))
         boxes, scores, valid = (torch.from_numpy(a).cuda() for a in arrays)
         _, b, v = sort_by_score(boxes, scores, valid)
-        before = [k.launches for k in KERNELS]
+        before = LAUNCHES.copy()
         keep = nms_sweep(b, v, thresh)
-        assert [k.launches for k in KERNELS] == [n + 1 for n in before]   # one band
+        assert LAUNCHES - before == {name: 1 for name in (                 # one band
+            'cdt_nms_bits_count', 'cdt_nms_bits_fill', 'cdt_nms_resolve')}
         assert torch.equal(keep, _nms_sweep(b, v, thresh))
         np.testing.assert_array_equal(nms_padded(boxes, scores, valid, thresh).cpu().numpy(),
                                       port(nms_padded, arrays, thresh))

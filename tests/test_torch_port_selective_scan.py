@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from celldetection_tpu_torch import models as tmodels
+from celldetection_tpu_torch.kernels import LAUNCHES
 from celldetection_tpu_torch.kernels.selective_scan import (chunk_tokens, exp2_plain,
                                                              selective_scan_kernel,
                                                              selective_scan_plain, takes)
@@ -209,9 +210,9 @@ def test_cpu_keeps_the_torch_scan():
     """On the CPU ``selective_scan`` is the torch scan bit for bit, launches
     nothing and counts no ``kernel`` on its span; the kernel's wrapper raises."""
     args = operands(3, 2, 50, 4)
-    before = selective_scan_kernel.launches
+    before = LAUNCHES['cdt_selective_scan']
     a, b = tmamba.selective_scan(*args), tmamba.selective_scan(*args)
-    assert torch.equal(a, b) and selective_scan_kernel.launches == before
+    assert torch.equal(a, b) and LAUNCHES['cdt_selective_scan'] == before
     with pytest.raises(ValueError):
         selective_scan_kernel(*args)
     model = tmodels.CpnResNet50UNet(3, max_detections=16, device='cpu', backbone_kwargs={
@@ -228,7 +229,7 @@ def test_cpu_keeps_the_torch_scan():
         spans.disable()
         spans.reset()
     assert len(scans) == 4 and all('kernel' not in r['counts'] for r in scans)
-    assert selective_scan_kernel.launches == before
+    assert LAUNCHES['cdt_selective_scan'] == before
 
 
 def test_dispatch_counts_kernel_on_the_span(monkeypatch):
@@ -262,11 +263,11 @@ def card():
 
 
 def _launch(args):
-    before = selective_scan_kernel.launches
+    before = LAUNCHES['cdt_selective_scan']
     with torch.no_grad():
         y = selective_scan_kernel(*args)
     torch.cuda.synchronize()
-    assert selective_scan_kernel.launches == before + 1
+    assert LAUNCHES['cdt_selective_scan'] == before + 1
     assert y.dtype == torch.float32 and y.is_contiguous()
     return y
 
@@ -314,9 +315,9 @@ def test_kernel_on_one_token_and_no_image(card):
     args = operands(5, 3, 1, 700, device='cuda')
     assert_close(_launch(args), recurrence(*args))
     empty = [t[:0] if t.dim() == 3 else t for t in operands(6, 2, 10, 64, device='cuda')]
-    before = selective_scan_kernel.launches
+    before = LAUNCHES['cdt_selective_scan']
     y = selective_scan_kernel(*empty)
-    assert y.shape == (0, 10, 64) and selective_scan_kernel.launches == before
+    assert y.shape == (0, 10, 64) and LAUNCHES['cdt_selective_scan'] == before
 
 
 @pytest.mark.cuda
@@ -330,8 +331,8 @@ def test_kernel_raises_on_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         selective_scan_kernel(*grad)
     # the model's bf16 and training calls keep the torch scan
-    before = selective_scan_kernel.launches
+    before = LAUNCHES['cdt_selective_scan']
     tmamba.selective_scan(*(t.bfloat16() for t in args))
     tmamba.selective_scan(*grad).sum().backward()
-    assert selective_scan_kernel.launches == before
+    assert LAUNCHES['cdt_selective_scan'] == before
     assert takes(*args) and not takes(*grad)

@@ -27,7 +27,7 @@ from celldetection_tpu.parallel import tiles as jtiles
 from celldetection_tpu.runtime.cpn_inference import preprocess as jax_preprocess
 from celldetection_tpu.util import tiling as jtiling
 from celldetection_tpu_torch.data import normalize_percentile
-from celldetection_tpu_torch.kernels import KERNELS
+from celldetection_tpu_torch.kernels import LAUNCHES
 from celldetection_tpu_torch.ops import boxes as tboxes
 from celldetection_tpu_torch.ops import cpn as tcpn
 from celldetection_tpu_torch.parallel import tiles as ttiles
@@ -260,9 +260,9 @@ def test_stitch_detections_matches_jax():
 
 
 def test_stitch_counts_no_kernel_launch_on_cpu():
-    before = [k.launches for k in KERNELS]
+    before = LAUNCHES.copy()
     ttiles.stitch_flat({k: t(v) for k, v in flat_detections(10, 600).items()}, 0.3)
-    assert [k.launches for k in KERNELS] == before
+    assert LAUNCHES == before
 
 
 # -- preprocess -----------------------------------------------------------------
