@@ -483,7 +483,9 @@ class Normalize(nn.Module):
     """``(clamp(x, *assert_range) - mean) / std`` over NC... input (2-D or 3-D).
 
     The JAX package clamps where the reference asserts; so does this port.
-    ``mean``/``std`` are scalars or per-channel sequences.
+    ``mean``/``std`` are scalars or per-channel sequences. Their tensors are
+    made once per dtype and device and kept (not in the state dict): copied
+    from the host on each call, they would make the host wait for the card.
     """
 
     def __init__(self, mean=0., std=1., assert_range=(0., 1.)):
@@ -491,13 +493,21 @@ class Normalize(nn.Module):
         self.mean = mean
         self.std = std
         self.assert_range = assert_range
+        self._tensors = {}
+
+    def _mean_std(self, dtype, device):
+        key = (dtype, device)
+        made = self._tensors.get(key)
+        if made is None or made[0] is not self.mean or made[1] is not self.std:
+            kw = dict(dtype=dtype, device=device)
+            made = self._tensors[key] = (self.mean, self.std, torch.as_tensor(self.mean, **kw),
+                                         torch.as_tensor(self.std, **kw))
+        return made[2:]
 
     def forward(self, x):
         if self.assert_range is not None:
             x = x.clamp(*self.assert_range)
-        kw = dict(dtype=x.dtype, device=x.device)
-        mean = torch.as_tensor(self.mean, **kw)
-        std = torch.as_tensor(self.std, **kw)
+        mean, std = self._mean_std(x.dtype, x.device)
         channel = (-1,) + (1,) * (x.dim() - 2)
         if mean.dim():
             mean = mean.reshape(channel)

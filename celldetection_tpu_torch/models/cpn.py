@@ -41,7 +41,7 @@ from ..ops.cpn import (batched_box_nms, fouriers2contours, order_weighting,
                        scale_fourier)
 from ..util.device import resolve_device
 from ..util.init import torch_init_
-from ..util.spans import count, recording, span
+from ..util.spans import count, host_syncs, recording, span
 from . import fpn as fpn_lib
 from . import manet as manet_lib
 from . import resnet as resnet_lib
@@ -585,8 +585,9 @@ class CPN(nn.Module):
                 random draws of training (the selection priority, which
                 subsamples the foreground when it exceeds K, and dropout).
 
-        Spans (:mod:`..util.spans`): ``cpn.forward`` (counts ``batch``, ``k``)
-        over ``cpn.cast_weights`` (``tensors``; with ``compute_dtype``),
+        Spans (:mod:`..util.spans`): ``cpn.forward`` (counts ``batch``, ``k``;
+        on a card ``host_syncs``, the synchronising CUDA calls inside it, 0 in
+        eval mode) over ``cpn.cast_weights`` (``tensors``; with ``compute_dtype``),
         ``cpn.core``, ``cpn.decode`` (``refine_iters``), ``cpn.loss`` and
         ``cpn.nms``.
         """
@@ -596,7 +597,7 @@ class CPN(nn.Module):
                 m.generator = generator
         k = self.max_detections if max_detections is None else max_detections
         with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
-                span('cpn.forward', batch=inputs.shape[0], k=k):
+                span('cpn.forward', batch=inputs.shape[0], k=k), host_syncs(inputs.device):
             return self._forward_padded(inputs, score_thresh, nms, offsets, scores_lower_bound,
                                         scores_upper_bound, k, targets, generator)
 

@@ -20,11 +20,13 @@ def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     """``jnp.clip``: a clamp whose derivative is 1/2 at a bound (``clamp``'s is 1).
 
     The tie rule matters to gradients that must agree with the JAX package.
+    The bounds are 0-d tensors filled on ``x``'s device: one copied from a
+    Python number would make the host wait for the card.
     """
     if lo is not None:
-        x = torch.maximum(x, x.new_tensor(lo))
+        x = torch.maximum(x, x.new_full((), lo))
     if hi is not None:
-        x = torch.minimum(x, x.new_tensor(hi))
+        x = torch.minimum(x, x.new_full((), hi))
     return x
 
 

@@ -8,6 +8,7 @@ Counterpart of ``celldetection_tpu/ops/cpn.py``: ``rel_location2abs_location``
 and ``filter_contours_by_stitching_rule`` (167-226), ``batched_box_nms``
 (229-237).
 """
+import functools
 import math
 from typing import Optional
 
@@ -44,13 +45,14 @@ def fourier_basis(order: int, samples: int = None, sampling: torch.Tensor = None
     Returns ``(c_cos, c_sin, sampling)``. The default sampling is
     ``i * (1 / (samples - 1))`` in ``dtype``: bit for bit what
     ``jnp.linspace(0, 1, samples)`` gives, since XLA turns its divide into
-    that multiply (``i / (samples - 1)`` differs in the last bit).
+    that multiply (``i / (samples - 1)`` differs in the last bit). The step
+    is filled on the device, not copied from the host.
     """
     if sampling is None:
         if samples == 1:
             sampling = torch.zeros(1, dtype=dtype, device=device)
         else:
-            step = torch.tensor(1. / (samples - 1), dtype=dtype, device=device)
+            step = torch.full((), 1. / (samples - 1), dtype=dtype, device=device)
             sampling = torch.arange(samples, dtype=dtype, device=device) * step
     k = torch.arange(1, order + 1, dtype=sampling.dtype, device=sampling.device)
     c = (2.0 * math.pi) * k[:, None] * sampling[..., None, :]
@@ -64,7 +66,9 @@ def fouriers2contours(fourier: torch.Tensor, locations: torch.Tensor, samples: i
     ``con[..., s, :] = loc + sum_k [a,c]_k cos(2 pi k t_s) + [b,d]_k sin(2 pi k t_s)``
 
     The order contraction is a broadcast multiply and sum in the input dtype,
-    not a matrix product, so no TF32 path can touch it.
+    not a matrix product, so no TF32 path can touch it. The x and y
+    coefficients are strided views (a list index would be copied from the
+    host).
 
     Args:
         fourier: ``[..., order, 4]`` coefficients (a, b, c, d).
@@ -78,30 +82,40 @@ def fouriers2contours(fourier: torch.Tensor, locations: torch.Tensor, samples: i
     order = fourier.shape[-2]
     c_cos, c_sin, sampling = fourier_basis(order, samples, sampling, dtype=fourier.dtype,
                                            device=fourier.device)
-    cos_coef = fourier[..., None, [0, 2]]   # [..., order, 1, 2]
-    sin_coef = fourier[..., None, [1, 3]]
+    cos_coef = fourier[..., None, 0::2]     # [..., order, 1, 2]: a, c
+    sin_coef = fourier[..., None, 1::2]     # b, d
     con = (cos_coef * c_cos[..., None]).sum(-3)          # [..., samples, 2]
     con = con + (sin_coef * c_sin[..., None]).sum(-3)
     return con + locations[..., None, :], sampling
 
 
-def get_scale(actual_size, original_size, flip: bool = True, dtype=torch.float32,
-              device=None) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _scales(actual_size: tuple, original_size: tuple, flip: bool, dtype, device):
+    """:func:`get_scale`'s ratio and its ``repeat_interleave`` by 2, made once per
+    arguments: sizes copied from the host on each call would make the host wait
+    for the card. Shared tensors: read them, never write them."""
     scale = (torch.as_tensor(original_size, dtype=dtype, device=device)
              / torch.as_tensor(actual_size, dtype=dtype, device=device))
-    return torch.flip(scale, (-1,)) if flip else scale
+    scale = torch.flip(scale, (-1,)) if flip else scale
+    return scale, torch.repeat_interleave(scale, 2, -1)
+
+
+def get_scale(actual_size, original_size, flip: bool = True, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    return _scales(tuple(actual_size), tuple(original_size), flip, dtype, device)[0].clone()
 
 
 def scale_contours(actual_size, original_size, contours: torch.Tensor) -> torch.Tensor:
     """Scale (x, y) contours from ``actual_size`` (h, w) to ``original_size`` (h, w)."""
-    return contours * get_scale(actual_size, original_size, dtype=contours.dtype,
-                                device=contours.device)
+    scale, _ = _scales(tuple(actual_size), tuple(original_size), True, contours.dtype,
+                       contours.device)
+    return contours * scale
 
 
 def scale_fourier(actual_size, original_size, fourier: torch.Tensor, location: torch.Tensor):
     """Scale Fourier descriptors (x slots 0, 1; y slots 2, 3) and locations."""
-    scale = get_scale(actual_size, original_size, dtype=fourier.dtype, device=fourier.device)
-    coef_scale = torch.repeat_interleave(scale, 2, -1)   # (sx, sx, sy, sy)
+    scale, coef_scale = _scales(tuple(actual_size), tuple(original_size), True, fourier.dtype,
+                                fourier.device)           # coef_scale: (sx, sx, sy, sy)
     return fourier * coef_scale, location * scale
 
 

@@ -22,15 +22,23 @@ reads. Recording, it also
 :func:`collect` waits for the card and returns the records (it does not
 clear them); :func:`reset` clears them. The spans of the port's layers and
 the per-layer metrics that read them are listed in PERF.md §3.
+
+``with host_syncs(device): ...`` counts, while a span records and ``device``
+is a card, the synchronising CUDA calls made in the block (those that
+``torch.cuda.set_sync_debug_mode('warn')`` reports) as ``host_syncs`` of the
+innermost recording span.
 """
+import contextlib
 import itertools
 import threading
 import time
+import warnings
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ['span', 'count', 'enable', 'disable', 'recording', 'collect', 'reset']
+__all__ = ['span', 'count', 'host_syncs', 'enable', 'disable', 'recording', 'collect',
+           'reset']
 
 _ON = False
 _RECORDS = []
@@ -126,6 +134,35 @@ def count(key: str, n=1):
     if stack:
         counts = stack[-1].counts
         counts[key] = counts.get(key, 0) + n
+
+
+_SYNC = 'called a synchronizing CUDA operation'
+
+
+@contextlib.contextmanager
+def host_syncs(device: torch.device):
+    """Count ``host_syncs`` (see the module's docstring); nothing where no span
+    records, ``device`` is not a card, or the caller has set a sync debug mode
+    of its own (its warnings or errors then reach it)."""
+    if not (recording() and device.type == 'cuda') or torch.cuda.get_sync_debug_mode():
+        yield
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.filterwarnings('always', message='.*' + _SYNC)
+        # torch's notice, once a process, that the mode is a prototype
+        warnings.filterwarnings('ignore', message='Synchronization debug mode')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = 0
+    for w in caught:
+        if _SYNC in str(w.message):
+            syncs += 1
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    count('host_syncs', syncs)
 
 
 def collect() -> list:
