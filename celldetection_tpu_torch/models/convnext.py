@@ -15,13 +15,21 @@ and the 2x2/2 downsamples pad as it does (:func:`.commons.same_padding`), so
 sides that the strides do not divide give the JAX package's shapes.
 ``nd=3`` builds the encoder for NCDHW volumes (``Conv3d`` stem, downsamples
 and depthwise convolutions).
+
+Spans (:mod:`..util.spans`): ``convnext.stage`` over each stage, its stem
+(stage 0) or downsample and its blocks, with counts ``stage``, ``batch``,
+``tokens`` (the stage's positions, H·W), ``channels``, ``in_channels`` (the
+image's for the stem, the previous stage's for a downsample), ``blocks`` and
+``elem_bytes`` (of the stage's input).
 """
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..util.spans import span
 from .commons import StochasticDepth, conv_nd, same_padding
 
 __all__ = ['GRN', 'CNBlock', 'CNBlockV2', 'ConvNeXtEncoder', 'ConvNeXt', 'ConvNeXtV2',
@@ -125,16 +133,22 @@ class ConvNeXtEncoder(nn.Module):
             [4 * 2 ** i for i in range(len(channels))]
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = self.stem_norm(self.stem_conv(same_padding(x, 4, 4)))
         features = {}
-        if not self.fused_initial:
-            features['0'] = x
         for i, depth in enumerate(self.depths):
-            if i > 0:
-                x = getattr(self, f'down{i}_norm')(x)
-                x = getattr(self, f'down{i}_conv')(same_padding(x, 2, 2))
-            for j in range(depth):
-                x = getattr(self, f'stage{i}_block{j}')(x)
+            stride = 4 if i == 0 else 2
+            with span('convnext.stage', stage=i, batch=x.shape[0],
+                      tokens=math.prod(-(-s // stride) for s in x.shape[2:]),
+                      channels=self.channels[i], in_channels=x.shape[1], blocks=depth,
+                      elem_bytes=x.element_size()):
+                if i == 0:
+                    x = self.stem_norm(self.stem_conv(same_padding(x, 4, 4)))
+                    if not self.fused_initial:
+                        features['0'] = x
+                else:
+                    x = getattr(self, f'down{i}_norm')(x)
+                    x = getattr(self, f'down{i}_conv')(same_padding(x, 2, 2))
+                for j in range(depth):
+                    x = getattr(self, f'stage{i}_block{j}')(x)
             features[str(len(features))] = x
         return features
 

@@ -96,9 +96,10 @@ Phases, in order; any failure exits non-zero:
      ``backbone_kwargs={'pretrained': path}`` on the card and the CPU
      (encoders bit-equal, the stem adapted to one channel);
  15. the zoo's main path on 1024^2 tiles as phase 5: CpnConvNeXtBaseUNet in
-     fp32 at batch 1 and bf16 at batch 4, CpnDenseNet121UNet,
-     CpnMobileNetV3LargeFPN and CpnResNet50MaNet in bf16 at batch 4 (the
-     kernel launches of these runs are ``launches_zoo``);
+     fp32 at batch 1 and bf16 at batch 4, CpnConvNeXtLargeUNet (its heads
+     over 192 channels, on the head conv kernel's BN = 64 tiles),
+     CpnDenseNet121UNet, CpnMobileNetV3LargeFPN and CpnResNet50MaNet in bf16
+     at batch 4 (the kernel launches of these runs are ``launches_zoo``);
  16. the batch inference CLI: CpnU22 saved with ``save_model``, loaded by
      ``tiled_models``, ``infer_input`` on a 4096^2 uint8 blob mosaic four ways
      (``launches_cli``), then card against CPU on 640^2;
@@ -1835,6 +1836,7 @@ ZOO_CHECK = {'CpnConvNeXtBaseUNet': {}, 'CpnConvNeXtV2TinyUNet': dict(score=0.2,
              'CpnResUNet': dict(score=0.1, fourier=0.1), 'CpnWideU22': {}}
 # phase 15: the zoo's main path on 1024^2 tiles (name, runs)
 ZOO_PATH = (('CpnConvNeXtBaseUNet', (('fp32', None, 1), ('bf16', torch.bfloat16, 4))),
+            ('CpnConvNeXtLargeUNet', (('bf16', torch.bfloat16, 4),)),
             ('CpnDenseNet121UNet', (('bf16', torch.bfloat16, 4),)),
             ('CpnMobileNetV3LargeFPN', (('bf16', torch.bfloat16, 4),)),
             ('CpnResNet50MaNet', (('bf16', torch.bfloat16, 4),)))
@@ -1908,7 +1910,7 @@ def phase_pretrained(rng):
 def phase_zoo(rng, card, errs, floor):
     """Phases 14 and 15: the rest of the zoo. Each new family at full width and
     depth at 256^2, card against CPU (TF32 off, random weights tamed); the
-    pretrained load; then the main path of four zoo models on 1024^2 tiles.
+    pretrained load; then the main path of five zoo models on 1024^2 tiles.
     Returns the NMS kernels' launches in phase 15's runs."""
     for name, factors in ZOO_CHECK.items():
         phase_card_vs_cpu(rng, f'phase 14: {name} (full width and depth)',

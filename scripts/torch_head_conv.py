@@ -12,11 +12,14 @@ to bf16) at the shapes the port runs on 1024^2 tiles, batch 4:
 * CpnU22's fused heads, ``[4, 128, 512, 512]`` by ``[384, 128, 7, 7]``;
 * the refinement head at full resolution, ``[4, 64, 1024, 1024]`` by
   ``[64, 64, 7, 7]``;
+* CpnConvNeXtLargeUNet's fused heads, ``[4, 192, 512, 512]`` by
+  ``[576, 192, 7, 7]``, and its refinement head, ``[4, 192, 1024, 1024]`` by
+  ``[192, 192, 7, 7]`` (both on tiles of 64 output channels);
 
 and at a ragged border, batch 1 and an all-zero input. A value passes where
 it lies within one bf16 ulp of the plain one (two halves of an ulp: both
 round once, after sums in different orders) plus the error bound of fp32
-sums. At the three main shapes it times, with CUDA events: the kernel
+sums. At the five main shapes it times, with CUDA events: the kernel
 (``kernel_ms``), its bound (the FLOPs at the 989 TFLOP/s dense bf16 peak,
 ``bound_ms``), the plain version (``plain_ms``) and, as yardsticks the port
 never calls, cuDNN's bf16 ``F.conv2d`` with its heuristic choice
@@ -46,6 +49,8 @@ SHAPES = {            # name: (batch, cin, cout, k, height, width)
     'flagship_fused': (4, 256, 768, 7, 512, 512),
     'u22_fused': (4, 128, 384, 7, 512, 512),
     'refinement': (4, 64, 64, 7, 1024, 1024),
+    'convnext_large_fused': (4, 192, 576, 7, 512, 512),
+    'convnext_large_refinement': (4, 192, 192, 7, 1024, 1024),
 }
 EDGES = {
     'ragged_border': (2, 256, 768, 7, 37, 53),

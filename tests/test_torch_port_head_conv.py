@@ -70,10 +70,10 @@ def implicit_gemm(x, weight, bias):
 def within_rounding(got, want, depth, half_ulps=1):
     """``got`` (bf16) is ``want`` rounded to bf16 within ``half_ulps`` halves
     of a bf16 ulp (2^-8 of the value each), up to the error of fp32 sums of
-    ``depth`` terms."""
-    got = got.double().numpy() if torch.is_tensor(got) else got
-    return np.abs(got - want) <= (half_ulps * 2. ** -8 * np.abs(want)
-                                  + depth * 2. ** -23 * np.abs(want).max())
+    ``depth`` terms; both are tensors, compared on their device in float64."""
+    got, want = got.double(), want.double()
+    return (got - want).abs() <= (half_ulps * 2. ** -8 * want.abs()
+                                  + depth * 2. ** -23 * want.abs().max())
 
 
 @pytest.mark.parametrize('k', [3, 5, 7])
@@ -86,15 +86,15 @@ def test_plain_matches_conv2d_and_the_implicit_gemm(k, cin, cout, batch, h, w):
     assert got.is_contiguous(memory_format=torch.channels_last)
     ref = F.conv2d(x.float(), wt.float(), b.float(), padding=k // 2)
     assert torch.equal(got, ref.bfloat16())
-    gemm = implicit_gemm(x, wt, b).transpose(0, 3, 1, 2)
+    gemm = torch.from_numpy(implicit_gemm(x, wt, b).transpose(0, 3, 1, 2))
     assert within_rounding(got, gemm, cin * k * k).all()
 
 
 def test_plain_without_bias_and_on_zeros():
     x, wt, _ = operands(3, 1, 64, 64, 7, 9, 9, bias=False)
     got = head_conv_plain(x, wt, None)
-    assert within_rounding(got, implicit_gemm(x, wt, None).transpose(0, 3, 1, 2),
-                           64 * 49).all()
+    gemm = torch.from_numpy(implicit_gemm(x, wt, None).transpose(0, 3, 1, 2))
+    assert within_rounding(got, gemm, 64 * 49).all()
     b = torch.linspace(-2, 2, 64).bfloat16()
     assert torch.equal(head_conv_plain(torch.zeros_like(x), wt, b),
                        b[None, :, None, None].expand(1, 64, 9, 9))
@@ -226,6 +226,8 @@ def card():
     (1, 64, 192, 3, 5, 3),        # smaller than a tile
     (1, 64, 128, 9, 21, 30),      # a K above the heads' 7
     (2, 128, 64, 1, 9, 17),       # no padding
+    (4, 192, 576, 7, 512, 512),   # CpnConvNeXtLargeUNet's fused heads: BN 64, three depth steps
+    (4, 192, 192, 7, 1024, 1024),  # its refinement head at full resolution
 ])
 def test_kernel_matches_plain_on_card(card, batch, cin, cout, k, h, w):
     x, wt, b = (t.to(card) for t in operands(batch + cin + k, batch, cin, cout, k, h, w))
@@ -235,7 +237,7 @@ def test_kernel_matches_plain_on_card(card, batch, cin, cout, k, h, w):
     assert LAUNCHES['cdt_head_conv'] == before + 1
     assert got.shape == (batch, cout, h, w) and got.dtype == torch.bfloat16
     want = head_conv_plain(x, wt, b)   # rounded too: the two may differ by one ulp
-    assert within_rounding(got.cpu(), want.cpu().double().numpy(), cin * k * k, 2).all()
+    assert bool(within_rounding(got, want, cin * k * k, 2).all())
     zero = head_conv_kernel(torch.zeros_like(x), wt, b)
     assert torch.equal(zero, b[None, :, None, None].expand_as(zero))
     with pytest.raises(ValueError):

@@ -10,8 +10,9 @@ none of them.
 * The census (CPU): a ``TorchFunctionMode`` over one eval ``forward_padded``,
   after a warm-up call, records every such call with the port's line that
   made it; there must be none, on narrow CpnU22 in fp32, on CpnResNet18UNet
-  with ``MambaLayer(dt_rank='auto')`` secondary blocks in bf16, and for each
-  tile forward of ``TiledInference`` on a small mosaic.
+  with ``MambaLayer(dt_rank='auto')`` secondary blocks in bf16, on a narrow
+  ConvNeXt UNet CPN in bf16, and for each tile forward of ``TiledInference``
+  on a small mosaic.
 * The rewritten helpers give the bits of the formulas they replace, copied
   here (``copied_*``, each making its constants by a copy from the host):
   ``clip``'s values and gradients (ties at both bounds, where ``jnp.clip``'s
@@ -121,13 +122,23 @@ def _mamba(device='cpu', compute_dtype=torch.bfloat16):
                                                               dt_rank='auto')}).eval()
 
 
+def _convnext(device='cpu', compute_dtype=torch.bfloat16):
+    """A narrow ConvNeXt CPN (CpnConvNeXtLargeUNet's blocks and two bridge levels),
+    built as the registry builds the ConvNeXt UNets."""
+    from celldetection_tpu_torch.models import convnext, cpn, unet
+    torch.manual_seed(2)
+    backbone = unet._backbone_unet(convnext._convnext((1, 1, 2, 1), (64, 64, 128, 128)))
+    return cpn._make_cpn(backbone, 3, name='CpnConvNeXtLargeUNet', max_detections=64,
+                         samples=16, device=device, compute_dtype=compute_dtype).eval()
+
+
 def _image(size, device='cpu', batch=1):
     g = torch.Generator().manual_seed(size)
     return torch.rand(batch, size, size, 3, generator=g).to(device)
 
 
-@pytest.mark.parametrize('build, size', [(_u22, 128), (_mamba, 64)],
-                         ids=['u22_fp32', 'resnet18unet_mamba_bf16'])
+@pytest.mark.parametrize('build, size', [(_u22, 128), (_mamba, 64), (_convnext, 64)],
+                         ids=['u22_fp32', 'resnet18unet_mamba_bf16', 'convnext_unet_bf16'])
 def test_eval_step_builds_no_tensor_from_host_data(build, size):
     model, x = build(), _image(size)
     with torch.no_grad():
@@ -357,8 +368,8 @@ def _recorded(model, x):
 @pytest.mark.cuda
 @pytest.mark.parametrize('build, size, batch', [
     (_u22, 256, 1), (_mamba, 128, 4),
-    (functools.partial(_mamba, compute_dtype=None), 128, 1)],
-    ids=['u22_fp32', 'resnet18unet_mamba_bf16', 'resnet18unet_mamba_fp32'])
+    (functools.partial(_mamba, compute_dtype=None), 128, 1), (_convnext, 128, 4)],
+    ids=['u22_fp32', 'resnet18unet_mamba_bf16', 'resnet18unet_mamba_fp32', 'convnext_unet_bf16'])
 def test_eval_step_waits_for_no_kernel_on_the_card(card, build, size, batch):
     model, x = build(device=card), _image(size, card, batch)
     with torch.no_grad():
